@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's SLAM main path on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (exit code != 0, no result line):
+
+  1. build the CUDA kernels from legoloam_tpu_torch/csrc (nvcc, sm_90a);
+  2. print the card's name and power limit;
+  3. hold every kernel against its plain PyTorch version on the card, at the
+     main path's shapes: K1 (CCL) and K2 (picks) exactly, on real synthetic
+     scans and seeded random masks; K3 (k-NN) at 8192 x 49152 and
+     2048 x 12288 (k=5, gated), k=1 ungated, and two ragged shapes off the
+     tile grid, against the plain version and against an exact
+     difference-form search;
+  4. run the full main path (frontend -> odometry -> scan-to-map every 3rd
+     scan -> fusion) at the DEFAULT configuration (VLP-16 16x1800, submap
+     caps 12288/49152, scan caps 2048/8192, 4096-keyframe store) over 96
+     ring-world scans, with every kernel's launch count read around the run;
+     fused ATE against ground truth < 0.2 m;
+  5. run the first 6 scans on the card and on the CPU (plain versions):
+     fused trajectories agree to 1e-3 m;
+  6. time each kernel, its plain version and, where one exists, a single
+     PyTorch call computing the same function.
+
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.  Needs no JAX and no network.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from legoloam_tpu_torch import DEFAULT
+from legoloam_tpu_torch.models import fusion, mapping, odometry, pipeline
+from legoloam_tpu_torch.ops import (_native, ccl_cuda, features,
+                                    features_cuda, knn_cuda, projection,
+                                    segmentation, voxel)
+from legoloam_tpu_torch.ops.se3 import Pose, transform_points
+from legoloam_tpu_torch.utils import metrics, synthetic
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+N_SCANS = 96
+N_PARITY_SCANS = 6
+KNN_REL_TOL = 1e-5
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call, from CUDA events around ``iters`` calls
+    after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Inputs
+# ---------------------------------------------------------------------------
+
+def make_scans(cfg, dev):
+    """Distinct ring-world scans with motion distortion (the JAX package's
+    bench.py --grow world) and the ground-truth trajectory."""
+    scene = synthetic.loop_scene()
+    poses = synthetic.circle_trajectory(N_SCANS + 1, radius=30.0,
+                                        angular_rate=0.009, device=dev)
+    scans = [synthetic.raycast_scan(
+        scene, Pose(poses.R[k], poses.t[k]), cfg.sensor,
+        next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
+        for k in range(N_SCANS)]
+    return scans, poses
+
+
+def frontend_inputs(scan, cfg):
+    """K1 inputs (seeds, conn_h, conn_v) and K2 inputs (compacted ranges,
+    columns, ground flags, counts) of one scan, as the main path forms
+    them."""
+    img = projection.project_scan(*scan[:2], cfg.sensor, ring=scan[2])
+    ground = segmentation.ground_removal(img, cfg.sensor, cfg.seg)
+    conn_h, conn_v = segmentation._connectivity(img, cfg.sensor, cfg.seg)
+    k1 = (img.valid & ~ground, conn_h, conn_v)
+    seg = segmentation.segment(img, cfg.sensor, cfg.seg)
+    c, count = features._compact_rings(img, seg)
+    in_ring = torch.arange(img.rng.shape[1], device=count.device)[None] \
+        < count[:, None]
+    rng = torch.where(in_ring, c["rng"], torch.zeros_like(c["rng"]))
+    k2 = (rng, c["col"], c["ground"], count)
+    return k1, k2
+
+
+def knn_sets(q_n, r_n, offset, gen, dev):
+    """Morton-sorted references and queries ``offset`` m from the origin
+    (the JAX package's tools/check_tpu_kernels.py inputs, scaled to the
+    mapping caps)."""
+    center = torch.tensor([offset, offset * 0.5, 0.0])
+    spread = torch.tensor([12.0, 12.0, 1.0])
+    raw = torch.randn(2 * r_n, 3, generator=gen) * spread + center
+    ref, rv = voxel.voxel_downsample(
+        raw.to(dev), torch.ones(2 * r_n, dtype=torch.bool, device=dev), 0.4,
+        r_n, origin=center.to(dev))
+    q = (torch.randn(q_n, 3, generator=gen) * torch.tensor([10.0, 10.0, 1.0])
+         + center).to(dev)
+    qv = torch.rand(q_n, generator=gen).to(dev) > 0.02
+    return q, qv, ref, rv
+
+
+def exact_knn(q, qv, ref, rv, k):
+    """Exact k-NN: difference-form distances (torch.cdist without the
+    matrix-product shortcut) and topk — the library yardstick for K3."""
+    q, ref = voxel.recentre(q, ref, rv)
+    d = torch.cdist(q, ref, compute_mode="donot_use_mm_for_euclid_dist")
+    d = torch.where(rv[None, :], d * d, torch.full_like(d, float("inf")))
+    return torch.topk(d, k, dim=1, largest=False)
+
+
+# ---------------------------------------------------------------------------
+# Kernel parity
+# ---------------------------------------------------------------------------
+
+def check_ccl(k1_sets, cfg, dev, gen):
+    cases = list(k1_sets)
+    n, h = cfg.sensor.n_scan, cfg.sensor.horizon_scan
+    for _ in range(2):
+        m = [torch.rand(s, generator=gen).to(dev) > 0.4
+             for s in ((n, h), (n, h), (n - 1, h))]
+        cases.append(tuple(m))
+    for seeds, ch, cv in cases:
+        got = ccl_cuda.label_propagation(seeds, ch, cv, cfg.seg.ccl_max_iters)
+        *want, sweeps = ccl_cuda.label_propagation_plain(
+            seeds, ch, cv, cfg.seg.ccl_max_iters)
+        torch.cuda.synchronize()
+        if sweeps >= cfg.seg.ccl_max_iters:
+            fail("ccl: the plain sweeps hit the cap; inputs not comparable")
+        for name, a, b in zip(("labels", "ring_min", "ring_max"), got, want):
+            if not torch.equal(a, b):
+                fail(f"ccl {name}: {(a != b).sum().item()} cells differ")
+    log(f"[parity] ccl: {len(cases)} cases exactly equal")
+    return 0.0
+
+
+def check_picks(k2_sets, cfg):
+    for rng, col, ground, count in k2_sets:
+        a = features_cuda.pick_labels(rng, col, ground, count, cfg.feat)
+        b = features_cuda.pick_labels_plain(rng, col, ground, count, cfg.feat)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail(f"picks: {(a != b).sum().item()} labels differ")
+        if int((a != 0).sum()) < 100:
+            fail("picks: too few picks to be a real scan")
+    log(f"[parity] picks: {len(k2_sets)} scans exactly equal")
+    return 0.0
+
+
+def check_knn(name, q, qv, ref, rv, k, gate):
+    """Kernel vs exact search and vs the plain version on gated rows.
+
+    Exact: distances within KNN_REL_TOL relative (so any index swap is
+    between neighbours equidistant within that tolerance).  Plain: where
+    the neighbour sets agree the distances agree within KNN_REL_TOL; the
+    plain version selects by the matrix-form distance, whose float32
+    quantisation at submap scale can drop a co-quantised neighbour, so where
+    the sets differ the kernel's neighbours are never farther than the
+    plain version's, and such rows stay under 1%."""
+    d_k, i_k = knn_cuda.knn(q, qv, ref, rv, k, gate=gate)
+    d_p, i_p = voxel.knn(q, qv, ref, rv, k)
+    d_e, _ = exact_knn(q, qv, ref, rv, k)
+    torch.cuda.synchronize()
+    gsq = gate ** 2 if gate is not None else float("inf")
+    rows = qv & (d_e[:, k - 1] < gsq)
+    n_rows = int(rows.sum())
+    if n_rows < 100:
+        fail(f"knn {name}: only {n_rows} gated rows")
+    if not (i_k[rows] < ref.shape[0]).all() or not rv[i_k[rows]].all():
+        fail(f"knn {name}: an invalid reference was returned")
+    if not (d_k[~qv] >= 1e29).all():
+        fail(f"knn {name}: invalid queries must get 1e30 rows")
+    rel_e = ((d_k - d_e).abs() / d_e.clamp(min=1e-12))[rows]
+    if float(rel_e.max()) > KNN_REL_TOL:
+        fail(f"knn {name}: max rel err vs exact {float(rel_e.max()):.3g}")
+    same = (torch.sort(i_k, 1)[0] == torch.sort(i_p, 1)[0]).all(1) & rows
+    diff_rows = rows & ~same
+    err = (d_k - d_p).abs()[same]
+    rel_p = (err / d_p[same].clamp(min=1e-12)).max() if err.numel() else 0.0
+    if float(rel_p) > KNN_REL_TOL:
+        fail(f"knn {name}: max rel err vs plain {float(rel_p):.3g}")
+    if (d_k[diff_rows] > d_p[diff_rows] * (1 + KNN_REL_TOL)).any():
+        fail(f"knn {name}: kernel neighbour farther than the plain one")
+    if int(diff_rows.sum()) > 0.01 * n_rows:
+        fail(f"knn {name}: {int(diff_rows.sum())} of {n_rows} rows differ")
+    log(f"[parity] knn {name}: {n_rows} gated rows, max rel err vs exact "
+        f"{float(rel_e.max()):.3g}, vs plain {float(rel_p):.3g}; "
+        f"{int(diff_rows.sum())} rows where the plain version missed a "
+        f"co-quantised neighbour")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def stage_times(scans, cfg, dev):
+    """Host-clock milliseconds per call of each pipeline stage, with the
+    card synchronised around every call (the steps of slam_scan_step, minus
+    the scan-1 bootstrap re-solves)."""
+    state = pipeline.init_slam_state(cfg, dev)
+    acc = {"frontend": [], "odometry": [], "mapping": [], "fusion": []}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        acc[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for k, (pts, valid, ring) in enumerate(scans):
+        feats = timed("frontend", lambda: pipeline.process_scan(
+            pts, valid, ring, cfg))
+        odom, pose, _ = timed("odometry", lambda: odometry.odometry_step(
+            state.odom, feats, cfg.odom))
+        mstate = state.mapping
+        if k % cfg.mapping_every == 0:
+            mstate, _, _ = timed("mapping", lambda: mapping.mapping_step(
+                mstate, odom.last_corner, odom.last_surf, odom.last_outlier,
+                pose, k * cfg.sensor.scan_period, cfg.mapping,
+                ground_cloud=odom.last_flat))
+        timed("fusion", lambda: fusion.fuse(pose, mstate.t_bef,
+                                            mstate.t_aft))
+        state = state._replace(odom=odom, mapping=mstate)
+    return {name: sorted(v)[len(v) // 2] for name, v in acc.items()}
+
+
+def bare_launch_ms(k1, k2, k3, cfg, gate):
+    """Milliseconds per bare kernel launch (the C entry point on prepared
+    device buffers, without the wrapper's checks and input preparation)."""
+    lib = _native.library()
+    seeds, ch, cv, rng, col, grd, cnt = (t.contiguous() for t in (*k1, *k2))
+    n, h = seeds.shape
+    i32 = dict(dtype=torch.int32, device=seeds.device)
+    bufs = [torch.empty(n * h, **i32) for _ in range(5)]
+    st = _native.stream_handle(seeds)
+    f = cfg.feat
+    q, qv, ref, rv = k3
+    qc, rc = voxel.recentre(q, ref, rv)
+    qc, rc = qc.contiguous(), rc.contiguous()
+    lo, hi = knn_cuda.chunk_boxes(rc, rv)
+    d = torch.empty((q.shape[0], 5), device=q.device)
+    i = torch.empty((q.shape[0], 5), **i32)
+    calls = {
+        "ccl": lambda: lib.ccl_launch(
+            seeds.data_ptr(), ch.data_ptr(), cv.data_ptr(),
+            *(b.data_ptr() for b in bufs), n, h, st),
+        "picks": lambda: lib.picks_launch(
+            rng.data_ptr(), col.data_ptr(), grd.data_ptr(), cnt.data_ptr(),
+            bufs[0].data_ptr(), n, h, f.sections, f.curvature_halfwin,
+            f.edge_less_per_section, f.edge_per_section, f.surf_per_section,
+            f.edge_threshold, f.surf_threshold, f.occlusion_col_gap,
+            f.occlusion_range_jump, f.parallel_beam_frac, st),
+        "knn": lambda: lib.knn_launch(
+            qc.data_ptr(), qv.data_ptr(), rc.data_ptr(), rv.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), d.data_ptr(), i.data_ptr(), None,
+            q.shape[0], ref.shape[0], 5, knn_cuda.RC, gate ** 2, 1, st)}
+    for fn in calls.values():
+        _native.check(fn(), "bare launch")
+    return {name: time_ms(fn, 200) for name, fn in calls.items()}
+
+
+# ---------------------------------------------------------------------------
+# Main
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to measure",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    cfg = DEFAULT
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    # 1. Build.
+    t0 = time.perf_counter()
+    lib_path = _native.build()
+    _native.library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s -> "
+        f"{lib_path.relative_to(lib_path.parents[2])}")
+
+    # 2. Device.
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"{torch.cuda.get_device_name(0)}, power limit not read"
+    log(f"[device] {card}")
+
+    # 3. Per-kernel parity at the main path's shapes.
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    scans, poses = make_scans(cfg, dev)
+    torch.cuda.synchronize()
+    log(f"[scans] {N_SCANS} scans ray-cast in "
+        f"{time.perf_counter() - t0:.2f} s")
+    fe = [frontend_inputs(scans[k], cfg) for k in (0, 40, 80)]
+    err = {"ccl": check_ccl([a for a, _ in fe], cfg, dev, gen),
+           "picks": check_picks([b for _, b in fe], cfg)}
+    gate = float(cfg.mapping.nn_max_dist) ** 0.5
+    mc = cfg.mapping
+    sets = {
+        "surf": knn_sets(mc.scan_surf_cap, mc.submap_surf_cap, 90.0, gen,
+                         dev),
+        "corner": knn_sets(mc.scan_corner_cap, mc.submap_corner_cap, 60.0,
+                           gen, dev)}
+    err["knn"] = max(check_knn("surf k=5", *sets["surf"], 5, gate),
+                     check_knn("corner k=5", *sets["corner"], 5, gate))
+    check_knn("corner k=1 ungated", *sets["corner"], 1, None)
+    ragged = torch.Generator().manual_seed(1)     # shapes off the tile grid
+    check_knn("ragged 1000 x 3001 k=5", *knn_sets(1000, 3001, 30.0, ragged,
+                                                  dev), 5, gate)
+    check_knn("ragged 777 x 1501 k=3 ungated", *knn_sets(777, 1501, 30.0,
+                                                         ragged, dev), 3, None)
+
+    # 4. Main path at full width, launches counted around the run only.
+    warm = [scans[k] for k in range(4)]
+    pipeline.run_slam_sequence(warm, cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_counts()
+    t0 = time.perf_counter()
+    fused, state = pipeline.run_slam_sequence(scans, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in _native.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not (torch.isfinite(fused.t).all() and torch.isfinite(fused.R).all()):
+        fail("main path: non-finite pose")
+    n_kf = int(state.mapping.kf.count)
+    if n_kf <= 0:
+        fail("main path: no keyframe")
+    gt = poses.t[:N_SCANS] - poses.t[0]
+    ate = float(metrics.ate_rmse(fused.t, gt))
+    end_err = float((fused.t[-1] - gt[-1]).norm())
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"main path: kernel {name} was never launched")
+    log(f"[main] {N_SCANS} scans in {t_run:.3f} s = {N_SCANS / t_run:.2f} "
+        f"scans/s; fused ATE {ate:.4f} m, end error {end_err:.4f} m, "
+        f"{n_kf} keyframes, peak allocated {peak / 2**30:.3f} GiB, "
+        f"launches {launches} [{card}]")
+    if ate >= 0.2:
+        fail(f"main path: fused ATE {ate:.4f} m >= 0.2 m")
+    med = stage_times(scans, cfg, dev)
+    log("[stages] median ms per call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in med.items())
+        + f" (mapping every {cfg.mapping_every} scans) [{card}]")
+
+    # 5. Card vs CPU over the first scans.
+    first = scans[:N_PARITY_SCANS]
+    f_gpu, _ = pipeline.run_slam_sequence(first, cfg, device=dev)
+    f_cpu, _ = pipeline.run_slam_sequence(
+        [tuple(a.cpu() for a in s) for s in first], cfg, device="cpu")
+    gap = float((f_gpu.t.cpu() - f_cpu.t).abs().max())
+    log(f"[path parity] first {N_PARITY_SCANS} scans, card vs CPU: max "
+        f"fused position difference {gap:.3g} m")
+    if gap >= 1e-3:
+        fail(f"path parity: {gap:.3g} m >= 1e-3 m")
+
+    # 6. Timings at the main path's shapes: K1/K2 on scan 0's inputs, K3 on
+    #    the final submap cache with the last keyframe's cloud as queries.
+    kf, cache = state.mapping.kf, state.mapping.cache
+    last = n_kf - 1
+    pose = Pose(kf.R[last], kf.t[last])
+    real = {
+        "surf": (transform_points(pose, kf.surf[last]), kf.surf_valid[last],
+                 cache.s_pts, cache.s_valid),
+        "corner": (transform_points(pose, kf.corner[last]),
+                   kf.corner_valid[last], cache.c_pts, cache.c_valid)}
+    err["knn"] = max(err["knn"], check_knn("main-path surf", *real["surf"],
+                                           5, gate),
+                     check_knn("main-path corner", *real["corner"], 5, gate))
+    (seeds, ch, cv), (rng, col, grd, cnt) = fe[0]
+    n, h = seeds.shape
+    rows = []
+
+    def row(name, ms, plain_ms, lib_ms, n_bytes, n_ops):
+        b, by = bound_ms(n_bytes, n_ops)
+        k = _native.KERNELS[name]
+        rows.append({"name": name, "route": "cuda", "source": k.source,
+                     "replaces": k.replaces, "launches": launches[name],
+                     "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
+
+    it = cfg.seg.ccl_max_iters
+    row("ccl",
+        time_ms(lambda: ccl_cuda.label_propagation(seeds, ch, cv, it), 200),
+        time_ms(lambda: ccl_cuda.label_propagation_plain(seeds, ch, cv, it),
+                10),
+        None, (2 * n * h + (n - 1) * h) + 3 * 4 * n * h, 0.0)
+    row("picks",
+        time_ms(lambda: features_cuda.pick_labels(rng, col, grd, cnt,
+                                                  cfg.feat), 200),
+        time_ms(lambda: features_cuda.pick_labels_plain(rng, col, grd, cnt,
+                                                        cfg.feat), 10),
+        None, (4 + 4 + 1 + 4) * n * h + 4 * n,
+        # curvature (12 flops a cell) + occlusion/parallel tests (~8)
+        20.0 * n * h)
+    q, qv, ref, rv = real["surf"]
+    visited = torch.zeros(1, dtype=torch.int64, device=dev)
+    knn_cuda.knn(q, qv, ref, rv, 5, gate=gate, visited=visited)
+    pairs = int(visited) * knn_cuda.TQ * knn_cuda.RC
+    n_chunks = (ref.shape[0] + knn_cuda.RC - 1) // knn_cuda.RC
+    n_tiles = (q.shape[0] + knn_cuda.TQ - 1) // knn_cuda.TQ
+    log(f"[knn] main-path surf 5-NN: {int(visited)} of {n_chunks * n_tiles} "
+        f"(query tile, reference chunk) pairs visited, "
+        f"{int(qv.sum())} valid queries, {int(rv.sum())} valid references")
+    row("knn",
+        time_ms(lambda: knn_cuda.knn(q, qv, ref, rv, 5, gate=gate), 50),
+        time_ms(lambda: voxel.knn(q, qv, ref, rv, 5), 5),
+        time_ms(lambda: exact_knn(q, qv, ref, rv, 5), 5),
+        13 * (q.shape[0] + ref.shape[0]) + 8 * 5 * q.shape[0],
+        8.0 * pairs)
+
+    bare = bare_launch_ms(fe[0][0], fe[0][1], real["surf"], cfg, gate)
+    log("[bare launch] ms per kernel launch without the wrapper: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in bare.items()) + f" [{card}]")
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,150 @@
+"""Curvature features: per-ring compaction, picks, fixed-cap feature clouds
+(port of ``legoloam_tpu/ops/features.py``; reference
+``src/featureAssociation.cpp:621-784``).
+
+Each ring's segmented cells are compacted to the front in column order (the
+reference's segmented-cloud layout); kernel K2 (``features_cuda``) turns the
+compacted channels into the pick-label grid; the label grid becomes the five
+fixed-capacity clouds.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import FeatureConfig, SensorConfig
+from .features_cuda import pick_labels
+from .projection import RangeImage
+from .segmentation import Segmentation
+from .voxel import voxel_cells, voxel_downsample_with_payload
+
+
+class FeatureCloud(NamedTuple):
+    """Fixed-capacity feature point set."""
+
+    xyz: torch.Tensor       # (cap, 3)
+    ring: torch.Tensor      # (cap,) float32 ring index
+    rel_time: torch.Tensor  # (cap,) scan-relative time in [0, 1]
+    valid: torch.Tensor     # (cap,) bool
+
+    @property
+    def count(self):
+        return torch.sum(self.valid)
+
+
+class ScanFeatures(NamedTuple):
+    sharp: FeatureCloud        # label 2
+    less_sharp: FeatureCloud   # label >= 1
+    flat: FeatureCloud         # label -1 (ground only)
+    less_flat: FeatureCloud    # label <= 0, 0.2 m thinned
+    outlier: FeatureCloud      # thinned invalid-cluster points
+    overflow: torch.Tensor     # (5,) int32 points dropped beyond each cap
+
+
+def _compaction_perm(segmented: torch.Tensor):
+    """Per-ring stable partition: segmented cells first (column order), the
+    rest after.  Returns (perm (N, H) int64, count (N,) int32)."""
+    n, h = segmented.shape
+    dev = segmented.device
+    cols = torch.arange(h, dtype=torch.int64, device=dev).expand(n, h)
+    count = torch.sum(segmented, dim=1, dtype=torch.int32)
+    pos_seg = torch.cumsum(segmented.to(torch.int64), 1) - 1
+    pos_rest = torch.cumsum((~segmented).to(torch.int64), 1) - 1 \
+        + count[:, None]
+    target = torch.where(segmented, pos_seg, pos_rest)
+    perm = torch.empty((n, h), dtype=torch.int64, device=dev)
+    perm.scatter_(1, target, cols)
+    return perm, count
+
+
+def _compact_rings(img: RangeImage, seg: Segmentation):
+    """Per-ring compaction of segmented cells into column order: a dict of
+    (N, H) channels in compacted layout + per-ring counts."""
+    perm, count = _compaction_perm(seg.segmented)
+    n, h = perm.shape
+    cols = torch.arange(h, dtype=torch.float32,
+                        device=perm.device).expand(n, h)
+    stacked = torch.cat([
+        img.xyz, img.rng[..., None], cols[..., None],
+        seg.seg_ground_flag.to(torch.float32)[..., None],
+        img.rel_time[..., None],
+        seg.segmented.to(torch.float32)[..., None]], dim=-1)
+    g = torch.gather(stacked, 1, perm[..., None].expand(n, h, 8))
+    return {"xyz": g[..., 0:3], "rng": g[..., 3],
+            "col": g[..., 4].to(torch.int32), "ground": g[..., 5] > 0.5,
+            "rel": g[..., 6]}, count
+
+
+def extract_features(img: RangeImage, seg: Segmentation, sensor: SensorConfig,
+                     cfg: FeatureConfig) -> ScanFeatures:
+    """Full feature extraction (the no-IMU path: cell coordinates as
+    projected)."""
+    n, h = img.rng.shape
+    c, count = _compact_rings(img, seg)
+    idx = torch.arange(h, device=count.device).expand(n, h)
+    in_ring = idx < count[:, None]
+    rng = torch.where(in_ring, c["rng"], torch.zeros_like(c["rng"]))
+    label = pick_labels(rng, c["col"], c["ground"], count, cfg)
+    return _build_clouds(img, seg, c, in_ring, label, cfg)
+
+
+def _compact_cloud(mask, cap: int, xyz, ring, rel):
+    """Index-order compaction of a dense mask into fixed-cap arrays; returns
+    (cloud, number of points dropped beyond ``cap``)."""
+    mflat = mask.reshape(-1)
+    slot = torch.cumsum(mflat.to(torch.int64), 0) - 1
+    tgt = torch.where(mflat & (slot < cap), slot,
+                      torch.full_like(slot, cap))
+    vals = torch.cat([xyz.reshape(-1, 3), ring.reshape(-1, 1),
+                      rel.reshape(-1, 1),
+                      mflat.to(torch.float32).reshape(-1, 1)], dim=1)
+    # Every dropped row lands in the spare row ``cap``, which is discarded.
+    out = torch.zeros((cap + 1, 6), dtype=vals.dtype, device=vals.device)
+    out = out.index_copy_(0, tgt, vals)[:cap]
+    out_ok = out[:, 5] > 0.5
+    z = out_ok.to(torch.float32)
+    n_dropped = torch.clamp(torch.sum(mflat, dtype=torch.int32) - cap, min=0)
+    return FeatureCloud(xyz=out[:, :3] * z[:, None], ring=out[:, 3] * z,
+                        rel_time=out[:, 4] * z, valid=out_ok), n_dropped
+
+
+def _build_clouds(img, seg, c, in_ring, label, cfg: FeatureConfig):
+    """Label grid -> the five fixed-cap feature clouds."""
+    n, h = img.rng.shape
+    ring_f = torch.arange(n, dtype=torch.float32,
+                          device=label.device)[:, None].expand(n, h)
+
+    def gather_cloud(mask, cap):
+        return _compact_cloud(mask, cap, c["xyz"], ring_f, c["rel"])
+
+    sharp, sharp_drop = gather_cloud(label == 2, cfg.max_sharp)
+    less_sharp, ls_drop = gather_cloud(label >= 1, cfg.max_less_sharp)
+    flat, flat_drop = gather_cloud(label == -1, cfg.max_flat)
+
+    lf_mask = in_ring & (label <= 0)
+    if cfg.less_flat_method == "run":
+        # First-of-run adjacent-cell dedup along each azimuth-ordered ring.
+        cell = voxel_cells(c["xyz"], cfg.less_flat_leaf)
+        same = torch.all(cell == torch.roll(cell, 1, 1), dim=-1)
+        prev_lf = torch.roll(lf_mask, 1, 1)
+        keep = lf_mask & ~(same & prev_lf)
+        keep[:, 0] = lf_mask[:, 0]
+        less_flat, lf_drop = _compact_cloud(keep, cfg.max_less_flat, c["xyz"],
+                                            ring_f, c["rel"])
+    else:
+        payload = torch.stack([ring_f, c["rel"]], dim=-1).reshape(-1, 2)
+        pts, pay, v, lf_drop = voxel_downsample_with_payload(
+            c["xyz"].reshape(-1, 3), payload, lf_mask.reshape(-1),
+            cfg.less_flat_leaf, cfg.max_less_flat, return_overflow=True)
+        less_flat = FeatureCloud(xyz=pts, ring=pay[:, 0],
+                                 rel_time=pay[:, 1], valid=v)
+
+    outlier, out_drop = _compact_cloud(seg.outlier, cfg.max_outlier, img.xyz,
+                                       ring_f, img.rel_time)
+    overflow = torch.stack([sharp_drop, ls_drop, flat_drop, lf_drop,
+                            out_drop]).to(torch.int32)
+    return ScanFeatures(sharp=sharp, less_sharp=less_sharp, flat=flat,
+                        less_flat=less_flat, outlier=outlier,
+                        overflow=overflow)

@@ -1,0 +1,203 @@
+"""Synthetic LiDAR worlds: ray-cast VLP-16-style scans with ground-truth
+poses (port of the scan generator of ``legoloam_tpu/utils/synthetic.py``).
+
+Scenes are a ground plane z = 0, axis-aligned boxes and vertical cylinders.
+Scan point order mimics a real Velodyne: one column (all rings) per firing,
+azimuth decreasing from +pi, so per-point time increases with emission index.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import SensorConfig
+from ..ops import se3
+from ..ops.se3 import Pose
+
+MAX_RANGE = 100.0
+
+
+class Scene(NamedTuple):
+    """Boxes (K, 6) [xmin ymin zmin xmax ymax zmax], cylinders (M, 4)
+    [cx cy radius height], ground plane z = 0."""
+
+    boxes: torch.Tensor
+    cylinders: torch.Tensor
+
+    def to(self, device) -> "Scene":
+        return Scene(self.boxes.to(device), self.cylinders.to(device))
+
+
+def default_scene() -> Scene:
+    """A ~50x40 m courtyard: walls, building corners, poles."""
+    boxes = np.array([
+        [-25.0, -20.0, 0.0, 25.0, -19.6, 3.0],
+        [-25.0, 19.6, 0.0, 25.0, 20.0, 3.0],
+        [-25.0, -20.0, 0.0, -24.6, 20.0, 3.0],
+        [24.6, -20.0, 0.0, 25.0, 20.0, 3.0],
+        [5.0, 5.0, 0.0, 12.0, 12.0, 4.0],
+        [-14.0, 6.0, 0.0, -8.0, 14.0, 5.0],
+        [-12.0, -14.0, 0.0, -4.0, -8.0, 3.5],
+        [10.0, -12.0, 0.0, 18.0, -6.0, 4.5],
+        [-2.0, 15.0, 0.0, 2.0, 17.0, 1.0],
+        [-20.0, -4.0, 0.0, -18.0, 0.0, 1.2],
+    ], np.float32)
+    cyl = np.array([
+        [3.0, -3.0, 0.15, 4.0],
+        [-5.0, 2.0, 0.2, 5.0],
+        [15.0, 3.0, 0.15, 4.0],
+        [-16.0, -10.0, 0.18, 4.5],
+        [0.0, 9.0, 0.15, 4.0],
+        [20.0, 14.0, 0.2, 5.0],
+        [-20.0, 12.0, 0.15, 4.0],
+        [8.0, -16.0, 0.15, 4.0],
+    ], np.float32)
+    return Scene(torch.from_numpy(boxes), torch.from_numpy(cyl))
+
+
+def loop_scene() -> Scene:
+    """A 90x90 m block with a collision-free ring lane of radius ~30 m
+    around (0, 30) (matching ``circle_trajectory(radius=30)``), buildings
+    inside and outside the lane, poles and crates along it."""
+    cx, cy = 0.0, 30.0
+    boxes = [
+        [-45.0, -15.0, 0.0, 45.0, -14.6, 4.0],
+        [-45.0, 74.6, 0.0, 45.0, 75.0, 4.0],
+        [-45.0, -15.0, 0.0, -44.6, 75.0, 4.0],
+        [44.6, -15.0, 0.0, 45.0, 75.0, 4.0],
+        [cx - 9.0, cy - 8.0, 0.0, cx + 9.0, cy + 8.0, 6.0],
+        [cx - 16.0, cy + 10.0, 0.0, cx - 10.0, cy + 16.0, 4.0],
+        [cx + 10.0, cy - 17.0, 0.0, cx + 17.0, cy - 10.0, 5.0],
+        [-43.0, -13.0, 0.0, -32.0, -2.0, 5.0],
+        [32.0, -13.0, 0.0, 43.0, -4.0, 4.5],
+        [-43.0, 62.0, 0.0, -33.0, 73.0, 5.5],
+        [31.0, 63.0, 0.0, 43.0, 73.0, 4.0],
+    ]
+    cyl = []
+    for k in range(36):
+        a = np.radians(10.0 * k)
+        cyl.append([cx + 23.0 * np.cos(a), cy + 23.0 * np.sin(a), 0.18, 5.0])
+        b = a + np.radians(5.0)
+        cyl.append([cx + 37.0 * np.cos(b), cy + 37.0 * np.sin(b), 0.18, 5.0])
+    rng = np.random.RandomState(7)
+    for k in range(28):
+        a = np.radians(360.0 / 28 * k + 6.0 * rng.rand())
+        r = 20.5 if k % 2 == 0 else 39.5
+        bx = cx + r * np.cos(a)
+        by = cy + r * np.sin(a)
+        w = 0.6 + 1.2 * rng.rand()
+        d = 0.6 + 1.2 * rng.rand()
+        hgt = 0.8 + 2.2 * rng.rand()
+        boxes.append([bx - w / 2, by - d / 2, 0.0, bx + w / 2, by + d / 2,
+                      hgt])
+    return Scene(torch.from_numpy(np.array(boxes, np.float32)),
+                 torch.from_numpy(np.array(cyl, np.float32)))
+
+
+def circle_trajectory(n_scans: int, radius: float = 8.0, height: float = 0.8,
+                      angular_rate: float = 0.02, device=None) -> Pose:
+    """Poses driving a circle (yaw tangent to the path)."""
+    th = angular_rate * torch.arange(n_scans, dtype=torch.float32,
+                                     device=device)
+    t = torch.stack([radius * torch.sin(th), radius * (1 - torch.cos(th)),
+                     torch.full_like(th, height)], dim=-1)
+    return Pose(se3.rot_z(th), t)
+
+
+def _ray_ground(o, d):
+    dz = d[:, 2]
+    s = -o[:, 2] / torch.where(torch.abs(dz) < 1e-9,
+                               torch.full_like(dz, 1e-9), dz)
+    return torch.where((s > 0) & (dz < 0), s, torch.full_like(s, torch.inf))
+
+
+def _ray_boxes(o, d, boxes):
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-9, torch.full_like(d, 1e-9), d)
+    t0 = (boxes[None, :, :3] - o[:, None, :]) * inv[:, None, :]
+    t1 = (boxes[None, :, 3:] - o[:, None, :]) * inv[:, None, :]
+    tmin = torch.amax(torch.minimum(t0, t1), dim=2)
+    tmax = torch.amin(torch.maximum(t0, t1), dim=2)
+    hit = (tmax >= tmin) & (tmax > 0)
+    s = torch.where(tmin > 0, tmin, tmax)
+    return torch.amin(torch.where(hit, s, torch.full_like(s, torch.inf)),
+                      dim=1)
+
+
+def _ray_cylinders(o, d, cyl):
+    ox = o[:, 0:1] - cyl[None, :, 0]
+    oy = o[:, 1:2] - cyl[None, :, 1]
+    dx, dy = d[:, 0:1], d[:, 1:2]
+    a = dx * dx + dy * dy
+    b = 2 * (ox * dx + oy * dy)
+    c = ox * ox + oy * oy - cyl[None, :, 2] ** 2
+    disc = b * b - 4 * a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    a_safe = torch.where(a < 1e-12, torch.full_like(a, 1e-12), a)
+    s0 = (-b - sq) / (2 * a_safe)
+    s1 = (-b + sq) / (2 * a_safe)
+    s = torch.where(s0 > 0, s0, s1)
+    z = o[:, 2:3] + s * d[:, 2:3]
+    hit = (disc > 0) & (s > 0) & (z >= 0) & (z <= cyl[None, :, 3])
+    return torch.amin(torch.where(hit, s, torch.full_like(s, torch.inf)),
+                      dim=1)
+
+
+def _ray_dirs(sensor: SensorConfig, device) -> torch.Tensor:
+    """Local-frame unit directions in EMISSION order: (H*N_SCAN, 3)."""
+    h, n = sensor.horizon_scan, sensor.n_scan
+    f32 = dict(dtype=torch.float32, device=device)
+    elev = torch.deg2rad(-sensor.ang_bottom_deg
+                         + sensor.ang_res_y_deg * torch.arange(n, **f32))
+    psi = torch.deg2rad(180.0 - sensor.ang_res_x_deg
+                        * torch.arange(h, **f32))
+    ce, se_ = torch.cos(elev), torch.sin(elev)
+    cp, sp = torch.cos(psi), torch.sin(psi)
+    dirs = torch.stack([cp[:, None] * ce[None, :], sp[:, None] * ce[None, :],
+                        se_[None, :].expand(h, n)], dim=-1)
+    return dirs.reshape(h * n, 3)
+
+
+def raycast_scan(scene: Scene, pose: Pose, sensor: SensorConfig,
+                 noise_sigma: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 next_pose: Optional[Pose] = None, motion: bool = False,
+                 chunk: int = 8192):
+    """Simulate one scan from ``pose`` on ``pose.t``'s device.
+
+    Returns (points (P, 3) in the sensor frame at each point's firing time,
+    valid (P,), ring (P,) int32) in emission order, P = H*N_SCAN.  With
+    ``motion`` and ``next_pose`` the sensor interpolates from pose to
+    next_pose during the sweep (motion distortion).  Range noise
+    ``noise_sigma`` is drawn from ``generator``."""
+    h, n = sensor.horizon_scan, sensor.n_scan
+    dev = pose.t.device
+    scene = scene.to(dev)
+    dirs = _ray_dirs(sensor, dev)
+    p_total = h * n
+    if motion and next_pose is not None:
+        frac = torch.div(torch.arange(p_total, device=dev), n,
+                         rounding_mode="floor").to(torch.float32) / h
+        R_t = se3.so3_interp(pose.R.expand(p_total, 3, 3),
+                             next_pose.R.expand(p_total, 3, 3), frac)
+        t_t = pose.t[None] + frac[:, None] * (next_pose.t - pose.t)[None]
+    else:
+        R_t = pose.R.expand(p_total, 3, 3)
+        t_t = pose.t.expand(p_total, 3)
+    d_world = (R_t @ dirs[:, :, None])[..., 0]
+    s = torch.cat([
+        torch.minimum(torch.minimum(
+            _ray_ground(t_t[i:i + chunk], d_world[i:i + chunk]),
+            _ray_boxes(t_t[i:i + chunk], d_world[i:i + chunk], scene.boxes)),
+            _ray_cylinders(t_t[i:i + chunk], d_world[i:i + chunk],
+                           scene.cylinders))
+        for i in range(0, p_total, chunk)])
+    if noise_sigma > 0:
+        s = s + noise_sigma * torch.randn(s.shape, generator=generator,
+                                          device=dev)
+    valid = (s > sensor.min_range) & (s < MAX_RANGE)
+    pts = dirs * torch.where(valid, s, torch.zeros_like(s))[:, None]
+    ring = torch.arange(n, dtype=torch.int32, device=dev).repeat(h)
+    return pts, valid, ring
