@@ -10,32 +10,43 @@
 // partition, so any correct labelling gives bit-identical output.
 //
 // What bounds it on the H100: latency.  A VLP-16 scan is 28.8K cells; the
-// inputs are ~115 KB of masks and the outputs 346 KB of int32 planes, well
+// inputs are ~86 KB of masks and the outputs 346 KB of int32 planes, well
 // under a microsecond of HBM time at 3.35 TB/s, so the time is launch
-// latency plus the dependent pointer chases of the union-find through L2.
+// latency plus the dependent pointer chases of the union-find; the design
+// keeps those chases short and mostly in shared memory.
 //
-// Design: a GPU union-find (Playne & Hawick 2018 / Komura 2015) instead of
-// the TPU's label sweeps.  Sweeps cost one pass per bend of a component's
-// min-label path and need a fixpoint test; union-find links every connected
-// pair once with atomicMin on the larger root, so the root of each tree is
-// always its minimum index and the result is exact after one pass,
-// whatever the component's shape.  Four short kernels, each one thread per
-// cell over the whole card: init, merge (union along the right neighbour —
-// with column wrap — and the lower neighbour), resolve (path walk to the
-// root + atomicMax of the ring into the root's slot), finalize (read the
-// root's ring maximum back).  The parent plane and ring-max plane stay in
-// device memory (230 KB for VLP-16 — over a block's 227 KB of shared
-// memory, but resident in the 50 MB L2).
-//
-// One intended difference from the JAX path: the JAX sweeps stop after
-// ccl_max_iters (32) sweeps; union-find always reaches the fixpoint.  The
-// two agree whenever the sweeps converged (<= 6 on real scans).
+// Design: a block-tiled union-find (Playne & Hawick 2018; Allegretti et al.
+// 2019).  Every link points a larger root at a smaller one (atomicMin), so
+// parents only decrease and each root is its tree's minimum index; any
+// ancestor may then replace a parent (path compression) without a race
+// breaking the forest.  Three launches:
+//   ccl_local   one block per tile of all N rings x W columns (W a
+//               multiple of 32, chosen in ccl_launch; VLP-16: 16 x 64 =
+//               1024 cells, one thread each).  In shared memory: each
+//               32-column row segment points every cell at its run's start
+//               (one __ballot_sync, so no chain grows along a run), then
+//               the remaining right and down links of the tile are united,
+//               every cell is compressed onto its root, and each root takes
+//               the component's ring maximum (atomicMax).  Writes every
+//               seed cell's global parent (its tile root) and the tile
+//               component's ring maximum.
+//   ccl_seams   one block: unites across the tile seams, the column-wrap
+//               seam included, in global memory; then every cell of a
+//               linked seam folds its tile component's ring maximum into the
+//               global root and points its tile root at the global root.  A
+//               tile component that joins another has such a cell, so
+//               every root ends with its component's ring maximum, and
+//               a cell is a few links at most from its root.
+//   ccl_resolve one thread per cell: root, ring minimum, ring maximum.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kMinTileW = 64;  // columns per tile, at least
+constexpr int kLocalThreads = 1024;  // at most; one per cell up to 1024
+constexpr int kSeamThreads = 1024;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ int find_root(const volatile int* parent, int x) {
@@ -47,13 +58,26 @@ __device__ __forceinline__ int find_root(const volatile int* parent, int x) {
   return x;
 }
 
-// Link the trees of a and b: the larger root is pointed at the smaller one.
-// Parents only ever decrease, so every root is its tree's minimum index.
-__device__ void unite(int* parent, int a, int b) {
+// find_root with path halving: each visited cell is pointed at its
+// grandparent (atomicMin, so parents still only decrease).  A node that is
+// not a root never becomes one again, so this never undoes a link.
+__device__ __forceinline__ int find_halve(int* parent, int x) {
   const volatile int* vp = parent;
+  int p = vp[x];
+  while (p != x) {
+    const int gp = vp[p];
+    if (gp != p) atomicMin(parent + x, gp);
+    x = gp;
+    p = vp[x];
+  }
+  return x;
+}
+
+// Link the trees of a and b: the larger root is pointed at the smaller one.
+__device__ void unite(int* parent, int a, int b) {
   while (true) {
-    a = find_root(vp, a);
-    b = find_root(vp, b);
+    a = find_halve(parent, a);
+    b = find_halve(parent, b);
     if (a == b) return;
     if (a < b) {
       int t = a;
@@ -66,45 +90,115 @@ __device__ void unite(int* parent, int a, int b) {
   }
 }
 
-__global__ void ccl_init(int* parent, int* rmax_root, int n_cells) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_cells) return;
-  parent[i] = i;
-  rmax_root[i] = -1;
+__global__ void __launch_bounds__(kLocalThreads)
+    ccl_local(const uint8_t* __restrict__ seed,
+              const uint8_t* __restrict__ conn_h,
+              const uint8_t* __restrict__ conn_v, int* __restrict__ parent,
+              int* __restrict__ rmax, int n, int h, int w) {
+  extern __shared__ int smem[];
+  int* sp = smem;          // tile-local parents, index r * w + j
+  int* srm = smem + n * w;  // ring maximum at each tile root
+  volatile int* vsp = sp;
+  const int c0 = blockIdx.x * w;
+  const int tw = min(w, h - c0);
+  const int cells = n * w;
+  const int lane = threadIdx.x % 32;
+
+  for (int l = threadIdx.x; l < cells; l += blockDim.x) srm[l] = -1;
+  // Runs of each 32-column row segment: every cell points at its run's
+  // first cell.
+  for (int l = threadIdx.x; l < cells; l += blockDim.x) {
+    const int r = l / w, j = l - (l / w) * w;
+    const int g = r * h + c0 + j;
+    const bool s = j < tw && seed[g];
+    const bool link = s && lane > 0 && seed[g - 1] && conn_h[g - 1];
+    const unsigned zeros = ~__ballot_sync(0xffffffffu, link) &
+                           ((2u << lane) - 1u);
+    sp[l] = l - lane + (31 - __clz(zeros));
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < cells; l += blockDim.x) {
+    const int r = l / w, j = l - (l / w) * w;
+    const int g = r * h + c0 + j;
+    if (j >= tw || !seed[g]) continue;
+    if (lane == 31 && j + 1 < tw && conn_h[g] && seed[g + 1])
+      unite(sp, l, l + 1);
+    if (r + 1 < n && conn_v[g] && seed[g + h]) unite(sp, l, l + w);
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < cells; l += blockDim.x) {
+    const int r = l / w, j = l - (l / w) * w;
+    if (j >= tw || !seed[r * h + c0 + j]) continue;
+    const int root = find_root(vsp, l);
+    vsp[l] = root;
+    atomicMax(srm + root, r);
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < cells; l += blockDim.x) {
+    const int r = l / w, j = l - (l / w) * w;
+    const int g = r * h + c0 + j;
+    if (j >= tw || !seed[g]) continue;
+    const int root = sp[l];
+    parent[g] = (root / w) * h + c0 + root % w;
+    rmax[g] = srm[root];
+  }
 }
 
-__global__ void ccl_merge(const uint8_t* seed, const uint8_t* conn_h,
-                          const uint8_t* conn_v, int* parent, int n, int h) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * h || !seed[i]) return;
-  int r = i / h;
-  int c = i - r * h;
-  int right = r * h + (c + 1 == h ? 0 : c + 1);
-  if (conn_h[i] && seed[right]) unite(parent, i, right);
-  if (r + 1 < n && conn_v[i] && seed[i + h]) unite(parent, i, i + h);
+// The seam between tile t's last column and the next tile's first (with
+// wrap) in ring r: its two cells, and whether they are linked.
+__device__ __forceinline__ bool seam(const uint8_t* seed,
+                                     const uint8_t* conn_h, int r, int t,
+                                     int h, int w, int* a, int* b) {
+  const int cl = min((t + 1) * w, h) - 1;
+  *a = r * h + cl;
+  *b = r * h + (cl + 1 == h ? 0 : cl + 1);
+  return seed[*a] && seed[*b] && conn_h[*a];
 }
 
-__global__ void ccl_resolve(const uint8_t* seed, const int* parent,
-                            int* labels, int* rmax_root, int n_cells, int h) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kSeamThreads)
+    ccl_seams(const uint8_t* __restrict__ seed,
+              const uint8_t* __restrict__ conn_h, int* parent, int* rmax,
+              int n, int h, int w) {
+  const int n_tiles = (h + w - 1) / w;
+  volatile int* vp = parent;
+  for (int s = threadIdx.x; s < n * n_tiles; s += kSeamThreads) {
+    const int r = s / n_tiles, t = s - r * n_tiles;
+    int a, b;
+    if (seam(seed, conn_h, r, t, h, w, &a, &b)) unite(parent, a, b);
+  }
+  __syncthreads();
+  // Every tile component that was joined has a cell on a linked seam: fold
+  // its ring maximum into the root, and point its tile root at the root.
+  for (int s = threadIdx.x; s < 2 * n * n_tiles; s += kSeamThreads) {
+    const int r = (s >> 1) / n_tiles, t = (s >> 1) - r * n_tiles;
+    int a, b;
+    if (!seam(seed, conn_h, r, t, h, w, &a, &b)) continue;
+    const int x = s & 1 ? b : a;
+    const int root = find_root(vp, x);
+    atomicMax(rmax + root, rmax[x]);
+    const int tile_root = vp[x];
+    if (tile_root != root) vp[tile_root] = root;
+    if (x != root) vp[x] = root;
+  }
+}
+
+__global__ void ccl_resolve(const uint8_t* __restrict__ seed,
+                            const int* __restrict__ parent,
+                            const int* __restrict__ rmax, int* labels,
+                            int* ring_min, int* ring_max, int n_cells,
+                            int h) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_cells) return;
   if (!seed[i]) {
     labels[i] = n_cells;
+    ring_min[i] = n_cells / h;
+    ring_max[i] = -1;
     return;
   }
-  int root = find_root(parent, i);
+  const int root = find_root(parent, i);
   labels[i] = root;
-  atomicMax(rmax_root + root, i / h);
-}
-
-__global__ void ccl_finalize(const int* labels, const int* rmax_root,
-                             int* ring_min, int* ring_max, int n_cells,
-                             int h) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_cells) return;
-  int l = labels[i];
-  ring_min[i] = l / h;
-  ring_max[i] = l < n_cells ? rmax_root[l] : -1;
+  ring_min[i] = root / h;
+  ring_max[i] = rmax[root];
 }
 
 }  // namespace
@@ -114,20 +208,31 @@ extern "C" int ccl_launch(const void* seed, const void* conn_h,
                           void* ring_min, void* ring_max, void* rmax_root,
                           int n, int h, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int n_cells = n * h;
-  int blocks = (n_cells + kThreads - 1) / kThreads;
+  // Tiles of at least kMinTileW columns, W a multiple of 32; tall sensors
+  // take wider tiles so that the one-block seam pass runs at most two rounds
+  // of kSeamThreads seams.  VLP-16 and HDL-32E get W = 64, VLS-128 W = 128.
+  const int w_seams = ((h * n + 2 * kSeamThreads - 1) / (2 * kSeamThreads)
+                       + 31) / 32 * 32;
+  const int w = max(kMinTileW, w_seams);
+  const int n_tiles = (h + w - 1) / w;
+  const int n_cells = n * h;
+  const size_t smem = 2 * static_cast<size_t>(n) * w * sizeof(int);
+  if (n < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ccl_local, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const auto* sd = static_cast<const uint8_t*>(seed);
+  const auto* ch = static_cast<const uint8_t*>(conn_h);
   int* par = static_cast<int*>(parent);
   int* rmx = static_cast<int*>(rmax_root);
-  int* lab = static_cast<int*>(labels);
-  ccl_init<<<blocks, kThreads, 0, s>>>(par, rmx, n_cells);
-  ccl_merge<<<blocks, kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(seed), static_cast<const uint8_t*>(conn_h),
-      static_cast<const uint8_t*>(conn_v), par, n, h);
-  ccl_resolve<<<blocks, kThreads, 0, s>>>(static_cast<const uint8_t*>(seed),
-                                          par, lab, rmx, n_cells, h);
-  ccl_finalize<<<blocks, kThreads, 0, s>>>(lab, rmx,
-                                           static_cast<int*>(ring_min),
-                                           static_cast<int*>(ring_max),
-                                           n_cells, h);
+  ccl_local<<<n_tiles, min(kLocalThreads, n * w), smem, s>>>(
+      sd, ch, static_cast<const uint8_t*>(conn_v), par, rmx, n, h, w);
+  ccl_seams<<<1, kSeamThreads, 0, s>>>(sd, ch, par, rmx, n, h, w);
+  ccl_resolve<<<(n_cells + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      sd, par, rmx, static_cast<int*>(labels), static_cast<int*>(ring_min),
+      static_cast<int*>(ring_max), n_cells, h);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # kernel's curvature decides picks by float compares).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+# ptxas's report (registers, shared memory, spills per kernel), written
+# beside the library by ``build``.
+PTXAS_LOG = "ptxas.log"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,10 +49,10 @@ SIGNATURES = {
     # parallel_frac, stream
     "picks_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                      _I, _F, _F, _P),
-    # q, q_valid, r, r_valid, chunk_lo, chunk_hi, d_out, i_out, visited,
-    # q_n, r_n, k, rc, gate_sq, use_gate, stream
-    "knn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                   _I, _P),
+    # q, q_valid, r, r_valid, chunk_lo, chunk_hi (scratch), d_out, i_out
+    # (int64), visited, q_n, r_n, k, gate_sq, use_gate, stream
+    "knn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                   _P),
 }
 
 
@@ -120,15 +123,15 @@ def build() -> Path:
             obj = os.path.join(tmp, src.stem + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        errors = []
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+                 obj], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        errors, logs = [], []
         for src, p in procs:
-            log, _ = p.communicate()
-            if p.returncode != 0:
-                errors.append(f"{src.name}:\n{log.decode(errors='replace')}")
+            log = f"{src.name}:\n{p.communicate()[0].decode(errors='replace')}"
+            (errors if p.returncode != 0 else logs).append(log)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        (out.parent / PTXAS_LOG).write_text("".join(logs))
         staged = os.path.join(tmp, out.name)
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", staged,
                                *objs], capture_output=True)

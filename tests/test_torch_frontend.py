@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from legoloam_tpu import config as jcfg
 from legoloam_tpu.config import DEFAULT as JD
 from legoloam_tpu.ops import features as jfeat
 from legoloam_tpu.ops import projection as jproj
@@ -156,6 +157,38 @@ def test_ccl_plain_matches_jax(case):
     # Labels are each component's minimum flat index.
     flat = np.arange(seeds.size).reshape(seeds.shape)
     assert (npy(lab)[seeds] <= flat[seeds]).all()
+
+
+@pytest.mark.parametrize("case", ["scan", "random"])
+def test_ccl_plain_matches_jax_hdl32e(case):
+    """K1's plain version against the JAX XLA path at the HDL-32E shape
+    (32 x 1800): a ray-cast HDL-32E scan and a seeded random mask.  Exact
+    (labels are partition-determined)."""
+    sensor = jcfg.for_sensor("hdl32e").sensor
+    if case == "scan":
+        pose = JPose(jnp.eye(3), jnp.array([1.5, -0.7, 0.8]))
+        pts, valid, ring = jsyn.raycast_scan(jsyn.default_scene(), pose,
+                                             sensor)
+        img = jproj.project_scan(pts, valid, sensor, ring=ring)
+        ground = jseg.ground_removal(img, sensor, JD.seg)
+        ch, cv = jseg._connectivity(img, sensor, JD.seg)
+        seeds, ch, cv = (np.asarray(a) for a in (img.valid & ~ground, ch, cv))
+    else:
+        rng = np.random.RandomState(6)
+        seeds, ch, cv = (rng.rand(*s) > 0.4
+                         for s in ((32, 1800), (32, 1800), (31, 1800)))
+    assert seeds.shape == (32, 1800) and seeds.sum() > 1000
+    lab, rmin, rmax, sweeps = ccl_cuda.label_propagation_plain(
+        tt(seeds), tt(ch), tt(cv), JD.seg.ccl_max_iters)
+    assert sweeps < JD.seg.ccl_max_iters
+    lab_x = jseg._label_propagation(jnp.asarray(seeds), jnp.asarray(ch),
+                                    jnp.asarray(cv), JD.seg.ccl_max_iters)
+    assert np.array_equal(npy(lab), np.asarray(lab_x))
+    rings = np.broadcast_to(np.arange(32)[:, None], seeds.shape)
+    for root in np.unique(npy(lab)[seeds])[:200]:
+        members = npy(lab) == root
+        assert (npy(rmin)[members] == rings[members].min()).all()
+        assert (npy(rmax)[members] == rings[members].max()).all()
 
 
 def test_ccl_plain_keeps_the_sweep_cap():
