@@ -9,9 +9,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
      print ptxas's report (registers, shared memory, spills) per kernel;
   2. print the card's name and power limit;
   3. hold every kernel against its plain PyTorch version on the card, at the
-     main path's shapes: K1 (CCL) and K2 (picks) exactly, on real synthetic
-     scans and seeded random masks, K1 also at the HDL-32E (32 x 1800) and
-     VLS-128 (128 x 1800) shapes; K3 (k-NN) at 8192 x 49152 and
+     main path's shapes: K1 (CCL) exactly, on real synthetic scans and seeded
+     random masks, also at the HDL-32E (32 x 1800) and VLS-128 (128 x 1800)
+     shapes; K2 (picks) label for label on the main path's VLP-16 scans as
+     they are and with ranges quantised to 1/256 m (ties at curvature 0),
+     on ray-cast HDL-32E, VLS-128, OS1-16 and OS1-64 scans, at the
+     REFERENCE pick counts, at sections 1 and 12, and on seeded stress rings
+     (``picks_cases``); K3 (k-NN) at 8192 x 49152 and
      2048 x 12288 (k=5, gated), k=1 ungated, and two ragged shapes off the
      tile grid, against the plain version, plus duplicate-point ties across
      chunk and warp boundaries and every k = 1..8 at one ragged shape; in
@@ -27,14 +31,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
   6. time each kernel (wrapper call and bare launch), its plain version and,
      where one exists, a single PyTorch call computing the same function;
      K3 also at the main-path corner shape and the ICP shape (8192 x 49152,
-     k=1, ungated), K1 also at the HDL-32E and VLS-128 shapes; K3's bound
-     from the (query, reference) pairs within the gate; each K1 and K3
-     launch's device time from torch.profiler.
+     k=1, ungated), K1 also at the HDL-32E and VLS-128 shapes, K2 also at
+     the HDL-32E, VLS-128 and OS1-64 shapes and with 0, 28 and 56 greedy
+     trips (the prologue and the cost of a trip); K3's bound from the
+     (query, reference) pairs within the gate; each kernel launch's device
+     time from torch.profiler.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -44,7 +51,7 @@ import time
 import torch
 
 from legoloam_tpu_torch import DEFAULT
-from legoloam_tpu_torch.config import for_sensor
+from legoloam_tpu_torch.config import REFERENCE, for_sensor
 from legoloam_tpu_torch.models import fusion, mapping, odometry, pipeline
 from legoloam_tpu_torch.ops import (_native, ccl_cuda, features,
                                     features_cuda, knn_cuda, projection,
@@ -63,6 +70,8 @@ KNN_REL_TOL = 1e-5
 # Rows where the plain k-NN's neighbour set differs from the kernel's, and
 # gated rows compared, over the main path's two searches (see check_knn).
 MAIN_PATH_DIFF = {"rows": 0, "of": 0}
+K1_TALL = ("hdl32e", "vls128")              # K1 checked and timed there
+K2_TALL = ("hdl32e", "vls128", "os1_64")    # K2 timed there
 
 
 def fail(msg: str):
@@ -210,16 +219,61 @@ def check_ccl(name, k1_sets, cfg, gen):
     return 0.0
 
 
-def check_picks(k2_sets, cfg):
-    for rng, col, ground, count in k2_sets:
-        a = features_cuda.pick_labels(rng, col, ground, count, cfg.feat)
-        b = features_cuda.pick_labels_plain(rng, col, ground, count, cfg.feat)
+def quantised(k2):
+    """K2 inputs with ranges on a 1/256 m grid: every curvature sum is
+    exact, so flat ground ties at curvature exactly 0."""
+    rng, col, ground, count = k2
+    return torch.round(rng * 256.0) / 256.0, col, ground, count
+
+
+def picks_cases(fe_vlp, tall, dev):
+    """Every K2 check: (name, inputs, FeatureConfig, is a real scan).  The
+    main path's three VLP-16 scans as they are and quantised; ray-cast
+    scans at HDL-32E, VLS-128, OS1-16 and OS1-64; REFERENCE pick counts and
+    sections 1 and 12 on VLP-16 scan 0; the seeded stress rings of
+    ``synthetic.pick_stress_rings`` (counts 0..H, column gaps every few
+    cells, ties at curvature 0, spikes on section boundaries) at sections
+    1, 6, 12 and 32, H = 1800 and 1022 (rows off the 16-byte grid), and
+    H = 4096 (shared-memory slabs, more than 48 KB of shared memory)."""
+    ref = REFERENCE.feat
+    feat = DEFAULT.feat
+    cases = []
+    for k, k2 in fe_vlp.items():
+        cases.append((f"vlp16 scan {k}", k2, feat, True))
+        cases.append((f"vlp16 scan {k} quantised", quantised(k2), feat, True))
+    for name, (_, k2) in tall.items():
+        cases.append((f"{name} scan", k2, for_sensor(name).feat, True))
+    k2 = fe_vlp[min(fe_vlp)]
+    cases.append(("vlp16 REFERENCE counts", k2, ref, True))
+    cases.append(("vlp16 quantised REFERENCE counts", quantised(k2), ref,
+                  True))
+    for sections in (1, 12):
+        cases.append((f"vlp16 sections={sections}", k2,
+                      dataclasses.replace(feat, sections=sections), True))
+    for sections, h in ((1, 1800), (6, 1800), (12, 1800), (32, 1800),
+                        (6, 1022), (1, 4096), (12, 4096)):
+        rings = synthetic.pick_stress_rings(sections + h, h, sections,
+                                            device=dev)
+        for counts, f in (("DEFAULT", feat), ("REFERENCE", ref)):
+            cases.append((f"stress rings {len(rings[3])} x {h} sections="
+                          f"{sections} {counts} counts", rings,
+                          dataclasses.replace(f, sections=sections), False))
+    return cases
+
+
+def check_picks(cases):
+    """K2 against its plain version on the card, label for label
+    (``torch.equal``), on every case of ``picks_cases``."""
+    for name, (rng, col, ground, count), f, real in cases:
+        a = features_cuda.pick_labels(rng, col, ground, count, f)
+        b = features_cuda.pick_labels_plain(rng, col, ground, count, f)
         torch.cuda.synchronize()
         if not torch.equal(a, b):
-            fail(f"picks: {(a != b).sum().item()} labels differ")
-        if int((a != 0).sum()) < 100:
-            fail("picks: too few picks to be a real scan")
-    log(f"[parity] picks: {len(k2_sets)} scans exactly equal")
+            fail(f"picks {name}: {(a != b).sum().item()} labels differ")
+        if real and int((a != 0).sum()) < 100:
+            fail(f"picks {name}: too few picks to be a real scan")
+    log(f"[parity] picks: {len(cases)} cases exactly equal ("
+        + "; ".join(name for name, *_ in cases) + ")")
     return 0.0
 
 
@@ -373,24 +427,33 @@ def bare_ms(fn, iters: int = 200) -> float:
     return time_ms(fn, iters)
 
 
-def device_us_per_launch(fn, calls: int = 20):
+def device_us_per_launch(fn, calls: int = 20, sessions: int = 3):
     """Device microseconds per launch of each CUDA kernel that ``fn`` runs,
     from torch.profiler over ``calls`` calls (empty if the profiler records
-    no device activity)."""
+    no device activity).  A session that records no kernel, or a kernel
+    fewer times than it was called (the profiler drops some records now
+    and then), is run again, up to ``sessions`` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", 0.0)
-        if us > 0 and e.count >= calls:
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out, short = {}, False
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0.0)
+            if us <= 0:
+                continue
+            if e.count < calls:
+                short = True
+                continue
             m = re.search(r"(\w+)(?:<[^>]*>)?\(", e.key)
             out[m.group(1) if m else e.key] = us / e.count
+        if out and not short:
+            break
     return out
 
 
@@ -402,6 +465,17 @@ def knn_bytes(q_n, r_n, k):
 
 def ccl_bytes(n, h):
     return (2 * n * h + (n - 1) * h) + 3 * 4 * n * h
+
+
+def picks_bytes(n, h):
+    """Ranges, columns and ground flags read, labels written, counts."""
+    return (4 + 4 + 1 + 4) * n * h + 4 * n
+
+
+def picks_ops(n, h):
+    """Curvature (12 flops a cell) and the occlusion and parallel tests
+    (~8)."""
+    return 20.0 * n * h
 
 
 # ---------------------------------------------------------------------------
@@ -447,17 +521,18 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[scans] {N_SCANS} scans ray-cast in "
         f"{time.perf_counter() - t0:.2f} s")
-    fe = [frontend_inputs(scans[k], cfg) for k in (0, 40, 80)]
-    err = {"ccl": check_ccl("vlp16", [a for a, _ in fe], cfg, gen),
-           "picks": check_picks([b for _, b in fe], cfg)}
-    tall = {}                   # K1 at the taller sensors' shapes
-    for name in ("hdl32e", "vls128"):
+    fe = {k: frontend_inputs(scans[k], cfg) for k in (0, 40, 80)}
+    err = {"ccl": check_ccl("vlp16", [a for a, _ in fe.values()], cfg, gen)}
+    tall = {}       # K1 and K2 inputs at the other sensors' shapes
+    for name in ("hdl32e", "vls128", "os1_16", "os1_64"):
         cs = for_sensor(name)
-        pts, valid, ring = synthetic.raycast_scan(
-            synthetic.loop_scene(), Pose(poses.R[0], poses.t[0]), cs.sensor)
-        tall[name] = ccl_inputs(projection.project_scan(
-            pts, valid, cs.sensor, ring=ring), cs)
-        check_ccl(name, [tall[name]], cs, gen)
+        tall[name] = frontend_inputs(synthetic.raycast_scan(
+            synthetic.loop_scene(), Pose(poses.R[0], poses.t[0]), cs.sensor),
+            cs)
+        if name in K1_TALL:
+            check_ccl(name, [tall[name][0]], cs, gen)
+    err["picks"] = check_picks(picks_cases(
+        {k: k2 for k, (_, k2) in fe.items()}, tall, dev))
     gate = float(cfg.mapping.nn_max_dist) ** 0.5
     mc = cfg.mapping
     sets = {
@@ -565,9 +640,7 @@ def main() -> int:
                                                   cfg.feat), 200),
         time_ms(lambda: features_cuda.pick_labels_plain(rng, col, grd, cnt,
                                                         cfg.feat), 10),
-        None, (4 + 4 + 1 + 4) * n * h + 4 * n,
-        # curvature (12 flops a cell) + occlusion/parallel tests (~8)
-        20.0 * n * h)
+        None, picks_bytes(n, h), picks_ops(n, h))
     q, qv, ref, rv = real["surf"]
     visited = torch.zeros(1, dtype=torch.int64, device=dev)
     knn_cuda.knn(q, qv, ref, rv, 5, gate=gate, visited=visited)
@@ -608,7 +681,8 @@ def main() -> int:
         log(f"[knn] {name} {kq.shape[0]} x {kr.shape[0]}: ms {ms:.4f}, "
             f"bare {bare_k:.4f}, bound {b:.6f} ({by}, {p} pairs), library "
             f"{lib:.2f} [{card}]")
-    for name, (ts, tch, tcv) in tall.items():
+    for name in K1_TALL:
+        ts, tch, tcv = tall[name][0]
         tn, th = ts.shape
         b, by = bound_ms(ccl_bytes(tn, th), 0.0)
         ms = time_ms(lambda: ccl_cuda.label_propagation(ts, tch, tcv, it),
@@ -616,22 +690,52 @@ def main() -> int:
         log(f"[ccl] {name} {tn} x {th}: ms {ms:.4f}, bare "
             f"{bare_ms(bare_ccl(ts, tch, tcv)):.4f}, bound {b:.6f} ({by}) "
             f"[{card}]")
-    # Device time per launch of each kernel of K1 and K3 (profiler).
+    for name in K2_TALL:
+        k2 = tall[name][1]
+        pf = for_sensor(name).feat
+        pn, ph = k2[0].shape
+        b, by = bound_ms(picks_bytes(pn, ph), picks_ops(pn, ph))
+        ms = time_ms(lambda: features_cuda.pick_labels(*k2, pf), 200)
+        log(f"[picks] {name} {pn} x {ph}: ms {ms:.4f}, bare "
+            f"{bare_ms(bare_picks(*k2, pf)):.4f}, bound {b:.6f} ({by}) "
+            f"[{card}]")
+    # Device time per launch of each kernel of K1, K2 and K3 (profiler).
     prof = {"ccl vlp16 16 x 1800": lambda: ccl_cuda.label_propagation(
                 seeds, ch, cv, it),
+            "picks vlp16 16 x 1800": lambda: features_cuda.pick_labels(
+                rng, col, grd, cnt, cfg.feat),
             "knn main-path surf 5-NN": lambda: knn_cuda.knn(
                 q, qv, ref, rv, 5, gate=gate),
             "knn ICP shape 1-NN ungated": lambda: knn_cuda.knn(
                 *sets["surf"], 1)}
-    for name, (ts, tch, tcv) in tall.items():
+    for name in K1_TALL:
+        ts, tch, tcv = tall[name][0]
         prof[f"ccl {name} {ts.shape[0]} x {ts.shape[1]}"] = (
             lambda ts=ts, tch=tch, tcv=tcv: ccl_cuda.label_propagation(
                 ts, tch, tcv, it))
+    for name in K2_TALL:
+        k2 = tall[name][1]
+        prof[f"picks {name} {k2[0].shape[0]} x {k2[0].shape[1]}"] = (
+            lambda k2=k2, pf=for_sensor(name).feat: features_cuda.pick_labels(
+                *k2, pf))
     for name, fn in prof.items():
         per = device_us_per_launch(fn)
         log(f"[profile] {name}: " + (", ".join(
             f"{k} {v:.2f} us" for k, v in per.items()) or "not measured")
             + f" per launch (device time) [{card}]")
+    # K2's fixed cost and its cost per greedy trip: device time of the bare
+    # launch with no trips, the main path's 20 + 8 and twice that (after
+    # the profiles above: a first profiler session can miss launches).
+    split = {}
+    for trips in (0, 28, 56):
+        per = device_us_per_launch(bare_picks(
+            rng, col, grd, cnt, dataclasses.replace(
+                cfg.feat, edge_less_per_section=trips * 5 // 7,
+                surf_per_section=trips * 2 // 7)))
+        split[trips] = sum(per.values()) if per else float("nan")
+    log("[picks] vlp16 device us per launch by greedy trips (edge + surf): "
+        + ", ".join(f"{t} {v:.2f}" for t, v in split.items())
+        + f"; {(split[56] - split[28]) / 28:.3f} us a trip [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

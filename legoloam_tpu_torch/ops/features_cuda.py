@@ -143,7 +143,9 @@ def pick_labels_plain(rng: torch.Tensor, col: torch.Tensor,
 
 def pick_labels(rng: torch.Tensor, col: torch.Tensor, ground: torch.Tensor,
                 count: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
-    """(N, H) int32 feature labels from the compacted per-ring channels.
+    """(N, H) int32 feature labels from the compacted per-ring channels
+    (counts in [0, H]; any 1 <= sections <= 32, halfwin <= 255, and any H
+    whose ring fits in a block's shared memory, ~14K columns).
 
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/picks.cu`` (or raise)."""
@@ -156,7 +158,9 @@ def pick_labels(rng: torch.Tensor, col: torch.Tensor, ground: torch.Tensor,
                     "picks: rng f32, col i32, ground bool, count i32")
     _native.require(col.shape == (n, h) and ground.shape == (n, h)
                     and count.shape == (n,), "picks: (N, H) grids, (N,) count")
-    _native.require(cfg.sections <= 32, "picks: at most 32 sections")
+    _native.require(1 <= cfg.sections <= 32, "picks: 1 to 32 sections")
+    _native.require(0 <= cfg.curvature_halfwin <= 255,
+                    "picks: curvature_halfwin at most 255")
     rng, col, ground, count = (t.contiguous() for t in
                                (rng, col, ground, count))
     _native.require_cuda(rng, col, ground, count)

@@ -107,6 +107,71 @@ def circle_trajectory(n_scans: int, radius: float = 8.0, height: float = 0.8,
     return Pose(se3.rot_z(th), t)
 
 
+PICK_STRESS_COUNTS = (0, 5, 11, 12, 13, 40)
+
+
+def pick_stress_rings(seed: int, h: int, sections: int, halfwin: int = 5,
+                      device=None):
+    """Seeded compacted rings that stress the feature picks (kernel K2):
+    (ranges (N, h) f32, zero beyond each ring's count; columns (N, h) i32;
+    ground flags (N, h) bool; counts (N,) i32).
+
+    Counts 0, 5, 11, 12, 13, 40, ``h`` and six random ones.  Every third
+    ring has no column gap, the others a gap > 10 every ~3 or ~20 cells,
+    and some column steps are exactly 10 (neither close nor a gap).  Ranges
+    on a 1/256 m grid: flat and linear ground runs (curvature exactly 0, so
+    surf picks tie), smooth walls, noise, and range jumps that mark
+    occlusions.  A 0.1875 m non-ground spike on the first and last cell of
+    every section (for ``sections`` and ``halfwin``) pulls edge picks onto
+    the section boundaries."""
+    rs = np.random.RandomState(seed)
+    counts = list(PICK_STRESS_COUNTS) + [h] + list(rs.randint(41, h + 1, 6))
+    n = len(counts)
+    rng = np.zeros((n, h), np.float32)
+    col = np.zeros((n, h), np.int32)
+    ground = np.zeros((n, h), bool)
+    for r, c in enumerate(counts):
+        gap_p = (0.0, 0.05, 0.3)[r % 3]
+        steps = np.where(rs.rand(h) < gap_p, rs.randint(11, 40, h), 1)
+        steps[rs.rand(h) < 0.03] = 10
+        col[r] = rs.randint(0, 50) + np.cumsum(steps) - steps[0]
+        vals = np.empty(h, np.float64)
+        i, prev = 0, rs.uniform(3.0, 40.0)
+        while i < h:
+            seg_len = min(rs.randint(3, 60), h - i)
+            base = prev if rs.rand() < 0.6 else rs.uniform(3.0, 40.0)
+            t = np.arange(seg_len)
+            kind = rs.randint(4)
+            if kind == 0:                                   # flat ground
+                seg, g = np.full(seg_len, base), True
+            elif kind == 1:                                 # linear ground
+                seg = base + rs.choice([-1, 1]) * rs.randint(1, 8) / 64 * t
+                g = True
+            elif kind == 2:                                 # smooth wall
+                seg, g = base + 0.002 * (t - seg_len / 2) ** 2, False
+            else:                                           # rough surface
+                seg = base + rs.uniform(-0.05, 0.05, seg_len)
+                g = rs.rand() < 0.3
+            vals[i:i + seg_len] = np.clip(seg, 1.0, 90.0)
+            ground[r, i:i + seg_len] = g
+            prev = float(vals[i + seg_len - 1])
+            i += seg_len
+        vals = np.round(vals * 256.0) / 256.0
+        e = c - halfwin - 1
+        for j in range(sections):
+            sp = (halfwin * (sections - j) + e * j) // sections
+            ep = e - 1 if j == sections - 1 else \
+                (halfwin * (sections - 1 - j) + e * (j + 1)) // sections - 1
+            for b in (sp, ep):
+                if 0 <= b < c:
+                    vals[b] += 0.1875
+                    ground[r, b] = False
+        rng[r, :c] = vals[:c]
+    return (torch.from_numpy(rng).to(device), torch.from_numpy(col).to(device),
+            torch.from_numpy(ground).to(device),
+            torch.tensor(counts, dtype=torch.int32, device=device))
+
+
 def _ray_ground(o, d):
     dz = d[:, 2]
     s = -o[:, 2] / torch.where(torch.abs(dz) < 1e-9,
