@@ -30,12 +30,36 @@ Phases, each fatal on failure (exit code != 0, no result line):
      fused trajectories agree to 1e-3 m;
   6. time each kernel (wrapper call and bare launch), its plain version and,
      where one exists, a single PyTorch call computing the same function;
-     K3 also at the main-path corner shape and the ICP shape (8192 x 49152,
-     k=1, ungated), K1 also at the HDL-32E and VLS-128 shapes, K2 also at
-     the HDL-32E, VLS-128 and OS1-64 shapes and with 0, 28 and 56 greedy
-     trips (the prologue and the cost of a trip); K3's bound from the
-     (query, reference) pairs within the gate; each kernel launch's device
-     time from torch.profiler.
+     K3 also at the main-path corner shape and a synthetic 1-NN shape
+     (8192 x 49152, ungated), K1 also at the HDL-32E and VLS-128 shapes, K2
+     also at the HDL-32E, VLS-128 and OS1-64 shapes and with 0, 28 and 56
+     greedy trips (the prologue and the cost of a trip); K3's bound from
+     the (query, reference) pairs within the gate; each kernel launch's
+     device time from torch.profiler;
+  7. loop closure at DEFAULT (loop enabled, an attempt a second, the time
+     gate cut to 8 s) through run_slam_sequence over the revisit lap of
+     tests/test_loop_e2e.py (260 scans at 1.05 m a scan): at least one
+     accepted closure, fused ATE < 0.5 m, every stored rotation with
+     |det - 1| < 1e-3, all finite; attempts, ICP iterations and ms per
+     attempt; K3 bitwise against the exact search at the two ICP shapes
+     (the accepted attempt's 10240 x 32768 clouds and relocalization's
+     4096 x 16384), timed there as in 6, and the ICP's 3x3 rotation
+     timed; the first accepted attempt again on the card and on the CPU
+     from a copy of its store and factors, at DEFAULT: equal closure
+     flags, fitness and corrected positions within the stated bounds;
+  8. decimate_keyframes(keep_recent=32) on the loop run's final store on
+     the card and on the CPU (counts, kept times, validity and factors
+     equal, poses within 1e-5), and a 96-scan run_slam_sequence whose
+     36-keyframe store maybe_decimate decimates mid-run;
+  9. the IMU path (synthetic.make_imu along the main-path world) over the
+     96 scans: fused ATE < 0.2 m, card vs CPU over 6 scans < 1e-3 m, the
+     median ms of each stage of process_scan_with_imu;
+ 10. a resumed session on the loop run's map: fresh odometry, a rigid scan
+     where the run's last sweep ended, the belief moved 20 m and 90 degrees
+     from the last mapped pose; relocalize_slam_state accepts, < 0.3 m
+     from ground truth (the map frame aligned as for the ATE).
+  Each path's kernel launches are counted around its run; the kernels line
+  sums them.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
@@ -43,6 +67,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -52,10 +77,12 @@ import torch
 
 from legoloam_tpu_torch import DEFAULT
 from legoloam_tpu_torch.config import REFERENCE, for_sensor
-from legoloam_tpu_torch.models import fusion, mapping, odometry, pipeline
-from legoloam_tpu_torch.ops import (_native, ccl_cuda, features,
-                                    features_cuda, knn_cuda, projection,
-                                    segmentation, voxel)
+from legoloam_tpu_torch.models import (fusion, loopclosure, mapping,
+                                       odometry, pipeline, posegraph,
+                                       relocalize)
+from legoloam_tpu_torch.ops import (_native, ccl_cuda, deskew, features,
+                                    features_cuda, icp, knn_cuda, projection,
+                                    se3, segmentation, voxel)
 from legoloam_tpu_torch.ops.se3 import Pose, transform_points
 from legoloam_tpu_torch.utils import metrics, synthetic
 
@@ -66,6 +93,22 @@ FP32_OPS_PER_S = 67e12
 
 N_SCANS = 96
 N_PARITY_SCANS = 6
+# The loop-closure run: tests/test_loop_e2e.py's revisit lap (1.05 m a
+# scan, 1.4 laps) with the reference's 30 s time gate cut to 8 s.
+LOOP_SCANS = 260
+LOOP_TIME_GAP = 8.0
+# Card vs CPU on one accepted attempt: the bounds on the two runs (the CPU's
+# plain 1-NN may pick another of two equidistant references; sound runs
+# agree to under 2e-4 m, and in fitness to the 5th digit or better).
+ATTEMPT_FIT_REL = 5e-4
+ATTEMPT_POS_TOL = 1e-3
+# Decimation run: a 36-keyframe store fills to its 16-keyframe margin by
+# scan 63 of the main-path world and is decimated mid-run.
+DECIMATE_CAP = 36
+DECIMATE_RECENT = 16
+# Relocalization: the prior is moved by this much from the mapped pose.
+RELOC_SHIFT_M = 20.0
+RELOC_YAW_DEG = 90.0
 KNN_REL_TOL = 1e-5
 # Rows where the plain k-NN's neighbour set differs from the kernel's, and
 # gated rows compared, over the main path's two searches (see check_knn).
@@ -429,32 +472,37 @@ def bare_ms(fn, iters: int = 200) -> float:
 
 def device_us_per_launch(fn, calls: int = 20, sessions: int = 3):
     """Device microseconds per launch of each CUDA kernel that ``fn`` runs,
-    from torch.profiler over ``calls`` calls (empty if the profiler records
-    no device activity).  A session that records no kernel, or a kernel
-    fewer times than it was called (the profiler drops some records now
-    and then), is run again, up to ``sessions`` times."""
+    from torch.profiler over ``calls`` calls.  A session that records no
+    kernel, or a kernel fewer times than it was called (the profiler drops
+    some records now and then), is run again, up to ``sessions`` times.  If
+    none records every launch, the last session's mean over the launches
+    it recorded is returned and the record counts are logged; empty if no
+    session recorded a kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    seen = {}
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        out, short = {}, False
+        rec = {}
         for e in prof.key_averages():
             us = getattr(e, "device_time_total", 0.0)
-            if us <= 0:
-                continue
-            if e.count < calls:
-                short = True
-                continue
-            m = re.search(r"(\w+)(?:<[^>]*>)?\(", e.key)
-            out[m.group(1) if m else e.key] = us / e.count
-        if out and not short:
+            if us > 0:
+                m = re.search(r"(\w+)(?:<[^>]*>)?\(", e.key)
+                rec[m.group(1) if m else e.key] = (us, e.count)
+        seen = rec or seen
+        if rec and all(n >= calls for _, n in rec.values()):
             break
-    return out
+    else:
+        log(f"[profile] no session of {sessions} recorded every launch of "
+            f"{calls} calls; the mean over the launches recorded: "
+            + (", ".join(f"{k} {n}" for k, (_, n) in seen.items())
+               or "none"))
+    return {k: us / n for k, (us, n) in seen.items()}
 
 
 def knn_bytes(q_n, r_n, k):
@@ -476,6 +524,241 @@ def picks_ops(n, h):
     """Curvature (12 flops a cell) and the occlusion and parallel tests
     (~8)."""
     return 20.0 * n * h
+
+
+# ---------------------------------------------------------------------------
+# The loop-closure, IMU, decimation and relocalization paths
+# ---------------------------------------------------------------------------
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def to_device(tree, dev):
+    """Every tensor of a tree of tuples on ``dev``."""
+    if isinstance(tree, tuple):
+        parts = (to_device(a, dev) for a in tree)
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else tuple(parts)
+    return tree.to(dev)
+
+
+def counted(fn):
+    """Run ``fn`` with the launch counts set to 0 just before it; returns
+    (its result, the launches of each kernel in it)."""
+    _native.reset_counts()
+    out = fn()
+    return out, {name: k.launches for name, k in _native.KERNELS.items()}
+
+
+class AttemptLog:
+    """Stands in for ``loopclosure.close_and_correct`` during the loop run.
+    Per attempt: host milliseconds with the card synchronised around it,
+    K3 launches inside it (ICP iterations + 1 when a candidate exists), the
+    candidate, the fitness and the acceptance.  At the first accepted
+    attempt: a copy of the store and factors it was given, and its ICP
+    clouds (the latest keyframe in world, the candidate's history cloud)."""
+
+    def __init__(self):
+        self.fn = loopclosure.close_and_correct
+        self.rows = []
+        self.first = None
+
+    def __call__(self, kf, loops, cfg, pg_cfg):
+        knn_k = _native.KERNELS["knn"]
+        sync(kf.t.device)
+        n0, t0 = knn_k.launches, time.perf_counter()
+        out = self.fn(kf, loops, cfg, pg_cfg)
+        sync(kf.t.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        diag = out[3]
+        closed, cand = bool(diag.closed), int(diag.candidate)
+        self.rows.append({"ms": ms, "knn": knn_k.launches - n0,
+                          "candidate": cand, "closed": closed,
+                          "fitness": float(diag.fitness)})
+        if closed and self.first is None:
+            cur = int(kf.count) - 1
+            self.first = {
+                "kf": type(kf)(*(a.clone() for a in kf)), "loops": loops,
+                "cur": loopclosure._world_cloud(kf, cur),
+                "hist": loopclosure._history_cloud(
+                    kf, torch.tensor(cand, device=kf.t.device), cfg)}
+        return out
+
+
+class CallTimer:
+    """Stands in for ``fn`` while installed: host milliseconds of each
+    call, the card synchronised around it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.ms = []
+
+    def __call__(self, *args, **kwargs):
+        dev = "cuda" if torch.cuda.is_available() else "cpu"
+        sync(dev)
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        sync(dev)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def loop_run(cfg, dev, n_scans=LOOP_SCANS):
+    """``run_slam_sequence`` with loop closure on the revisit lap, with
+    every attempt logged and each attempt's ICP and pose-graph solve timed
+    (``log.icp``, ``log.solve``).  Returns (fused, state, poses, log,
+    seconds)."""
+    scene = synthetic.loop_scene()
+    poses = synthetic.circle_trajectory(n_scans + 1, radius=30.0,
+                                        angular_rate=0.035, device=dev)
+    scans = [synthetic.raycast_scan(
+        scene, Pose(poses.R[k], poses.t[k]), cfg.sensor,
+        next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
+        for k in range(n_scans)]
+    log = AttemptLog()
+    log.icp = CallTimer(icp.icp)
+    log.solve = CallTimer(posegraph.optimize)
+    loopclosure.close_and_correct = log
+    icp.icp, posegraph.optimize = log.icp, log.solve
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        fused, state = pipeline.run_slam_sequence(
+            scans, cfg, times=[0.1 * k for k in range(n_scans)], device=dev)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        loopclosure.close_and_correct = log.fn
+        icp.icp, posegraph.optimize = log.icp.fn, log.solve.fn
+    return fused, state, poses, log, seconds
+
+
+def attempt_card_vs_cpu(first, cfg, dev):
+    """The first accepted attempt's store and factors, through
+    ``close_and_correct`` on the card and on the CPU: (closed on each,
+    fitness on each, the largest corrected keyframe position difference,
+    CPU seconds)."""
+    kf = first["kf"]
+    out = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        k2, _, _, diag = loopclosure.close_and_correct(
+            to_device(kf, where), to_device(first["loops"], where), cfg.loop,
+            cfg.posegraph)
+        sync(where)
+        out[str(where)] = (bool(diag.closed), float(diag.fitness),
+                           k2.t.cpu(), time.perf_counter() - t0)
+    (cg, fg, tg, _), (cc, fc, tc, sec) = out[str(dev)], out["cpu"]
+    n = int(kf.count)
+    gap = float((tg[:n] - tc[:n]).abs().max())
+    return (cg, cc), (fg, fc), gap, sec
+
+
+def decimate_card_vs_cpu(kf, loops, dev, keep_recent=32):
+    """``decimate_keyframes`` on the card and on the CPU from the same
+    store: (count, loop count, dropped, whether counts, kept times, loop
+    endpoints and validity are equal, the largest pose difference)."""
+    g = mapping.decimate_keyframes(kf, loops, keep_recent=keep_recent)
+    c = mapping.decimate_keyframes(to_device(kf, "cpu"),
+                                   to_device(loops, "cpu"),
+                                   keep_recent=keep_recent)
+    (gk, gl), (ck, cl) = to_device(g, "cpu"), c
+    exact = (torch.equal(gk.count, ck.count)
+             and torch.equal(gk.time, ck.time)
+             and torch.equal(gk.corner_valid, ck.corner_valid)
+             and torch.equal(gk.surf_valid, ck.surf_valid)
+             and all(torch.equal(getattr(gl, f), getattr(cl, f))
+                     for f in ("i", "j", "valid", "count", "dropped")))
+    pairs = [(getattr(gk, f), getattr(ck, f))
+             for f in ("R", "t", "chain_R", "chain_t")]
+    pairs += [(gl.R, cl.R), (gl.t, cl.t)]
+    pose_gap = max(float((a - b).abs().max()) for a, b in pairs)
+    return int(gk.count), int(gl.count), int(gl.dropped), exact, pose_gap
+
+
+def imu_integral(poses):
+    ts, rpy, acc, gyro = synthetic.make_imu(poses)
+    return deskew.integrate_imu(deskew.ImuWindow(
+        ts, rpy, acc, gyro, torch.ones(ts.shape[0], dtype=torch.bool,
+                                       device=ts.device)))
+
+
+def imu_run(scans, integ, cfg, dev):
+    """``slam_scan_step`` with the IMU integral over ``scans`` (the
+    run_slam_sequence cadence); returns the fused positions."""
+    state = pipeline.init_slam_state(cfg, dev)
+    integ = to_device(integ, dev)
+    fused = []
+    for k, s in enumerate(scans):
+        state, out = pipeline.slam_scan_step(
+            state, *(a.to(dev) for a in s), cfg, k * cfg.sensor.scan_period,
+            run_mapping=(k % cfg.mapping_every == 0), imu_integral=integ,
+            bootstrap=(k == 1))
+        fused.append(out.fused_pose.t)
+    return torch.stack(fused)
+
+
+def imu_stage_times(scans, integ, cfg, dev, n=12):
+    """Median host-clock ms of each stage of ``process_scan_with_imu`` over
+    ``n`` scans, the card synchronised around every stage."""
+    acc = {"projection": [], "segmentation": [], "deskew": [],
+           "features": []}
+
+    def timed(name, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        acc[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for k, (pts, valid, ring) in enumerate(scans[:n]):
+        img = timed("projection", lambda: projection.project_scan(
+            pts, valid, cfg.sensor, ring=ring))
+        seg = timed("segmentation", lambda: segmentation.segment(
+            img, cfg.sensor, cfg.seg))
+        dsk = timed("deskew", lambda: deskew.deskew_image(
+            img.xyz, img.rel_time, img.valid, k * cfg.sensor.scan_period,
+            integ, scan_period=cfg.sensor.scan_period))
+        timed("features", lambda: features.extract_features(
+            img, seg, cfg.sensor, cfg.feat, xyz_deskewed=dsk.xyz))
+    return {name: sorted(v)[len(v) // 2] for name, v in acc.items()}
+
+
+def kidnap(state, shift_m=RELOC_SHIFT_M, yaw_deg=RELOC_YAW_DEG):
+    """The state with its belief (``t_aft``) moved by ``shift_m`` along
+    map x and turned by ``yaw_deg`` about z."""
+    mp = state.mapping
+    dev = mp.t_aft.t.device
+    Rz = se3.rot_z(torch.tensor(math.radians(yaw_deg), device=dev))
+    moved = Pose(Rz @ mp.t_aft.R,
+                 mp.t_aft.t + torch.tensor([shift_m, 0.0, 0.0], device=dev))
+    return state._replace(mapping=mp._replace(t_aft=moved))
+
+
+def reloc_clouds(state, cfg, placement: Pose):
+    """Kernel K3's inputs at the relocalization shape: the current scan's
+    cloud bounded to ``cur_cap`` and placed at ``placement``, and the
+    latest keyframe's ±``window`` submap."""
+    od, mp = state.odom, state.mapping
+    pts, val = voxel.voxel_representative(
+        torch.cat([od.last_corner.xyz, od.last_surf.xyz]),
+        torch.cat([od.last_corner.valid, od.last_surf.valid]),
+        cfg.reloc.scan_leaf, cfg.reloc.cur_cap)
+    hist = loopclosure.window_cloud(
+        mp.kf, mp.kf.count.long() - 1, cfg.reloc.window,
+        cfg.reloc.submap_leaf, cfg.reloc.hist_cap)
+    return (transform_points(placement, pts), val) + hist
+
+
+def ground_truth(poses, n):
+    """Ground-truth positions of scans 0..n-1.  A scan is ray-cast while
+    the sensor moves from trajectory pose k to pose k + 1 and the pipeline
+    places it where its sweep ended, so scan k's ground truth is pose
+    k + 1."""
+    return poses.t[1:n + 1]
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +831,7 @@ def main() -> int:
                                                   dev), 5, gate)
     check_knn("ragged 777 x 1501 k=3 ungated", *knn_sets(777, 1501, 30.0,
                                                          ragged, dev), 3, None)
-    check_knn("ICP shape 8192 x 49152 k=1 ungated", *sets["surf"], 1, None)
+    check_knn("synthetic 8192 x 49152 k=1 ungated", *sets["surf"], 1, None)
     ragged_set = knn_sets(1000, 3001, 30.0, ragged, dev)
     for k in range(1, knn_cuda.MAX_K + 1):
         check_knn(f"ragged 1000 x 3001 k={k} ungated", *ragged_set, k, None,
@@ -574,9 +857,10 @@ def main() -> int:
     n_kf = int(state.mapping.kf.count)
     if n_kf <= 0:
         fail("main path: no keyframe")
-    gt = poses.t[:N_SCANS] - poses.t[0]
+    gt = ground_truth(poses, N_SCANS)
     ate = float(metrics.ate_rmse(fused.t, gt))
-    end_err = float((fused.t[-1] - gt[-1]).norm())
+    # Unaligned: the map frame is scan 0's, the sensor at pose 1.
+    end_err = float((fused.t[-1] - (gt[-1] - gt[0]) @ poses.R[1]).norm())
     for name, n in launches.items():
         if n <= 0:
             fail(f"main path: kernel {name} was never launched")
@@ -668,11 +952,11 @@ def main() -> int:
     log("[bare launch] ms per kernel launch without the wrapper: " + ", ".join(
         f"{k} {v:.4f}" for k, v in bare.items()) + f" [{card}]")
 
-    # K3 at the main-path corner shape and the ICP shape; K1 at the taller
-    # sensors' shapes.
+    # K3 at the main-path corner shape and a synthetic 1-NN shape; K1 at the
+    # taller sensors' shapes.
     for name, (kq, kqv, kr, krv), k, g in (
             ("main-path corner 5-NN", real["corner"], 5, gate),
-            ("ICP shape 1-NN ungated", sets["surf"], 1, None)):
+            ("synthetic 1-NN ungated", sets["surf"], 1, None)):
         p = knn_cuda.gated_pairs(kq, kqv, kr, krv, g)
         b, by = bound_ms(knn_bytes(kq.shape[0], kr.shape[0], k), 8.0 * p)
         lib = time_ms(lambda: library_knn(kq, kqv, kr, krv, k), 2, 1)
@@ -706,7 +990,7 @@ def main() -> int:
                 rng, col, grd, cnt, cfg.feat),
             "knn main-path surf 5-NN": lambda: knn_cuda.knn(
                 q, qv, ref, rv, 5, gate=gate),
-            "knn ICP shape 1-NN ungated": lambda: knn_cuda.knn(
+            "knn synthetic 1-NN ungated 8192 x 49152": lambda: knn_cuda.knn(
                 *sets["surf"], 1)}
     for name in K1_TALL:
         ts, tch, tcv = tall[name][0]
@@ -736,6 +1020,214 @@ def main() -> int:
     log("[picks] vlp16 device us per launch by greedy trips (edge + surf): "
         + ", ".join(f"{t} {v:.2f}" for t, v in split.items())
         + f"; {(split[56] - split[28]) / 28:.3f} us a trip [{card}]")
+
+    # 7. Loop closure at DEFAULT on the revisit lap.
+    lcfg = cfg.replace(loop=dataclasses.replace(
+        cfg.loop, enabled=True, cadence=1.0, min_time_gap=LOOP_TIME_GAP))
+    (fused_l, st_l, poses_l, alog, t_loop), path_launches = counted(
+        lambda: loop_run(lcfg, dev))
+    paths = {"main": launches, "loop": path_launches}
+    gt_l = ground_truth(poses_l, LOOP_SCANS)
+    ate_l = float(metrics.ate_rmse(fused_l.t, gt_l))
+    kf_l = st_l.mapping.kf
+    n_l = int(kf_l.count)
+    dets = torch.linalg.det(kf_l.R[:n_l].double())
+    with_cand = [r for r in alog.rows if r["candidate"] >= 0]
+    accepted = [r for r in alog.rows if r["closed"]]
+    iters = sorted(r["knn"] - 1 for r in with_cand)
+
+    def median(v):
+        return sorted(v)[len(v) // 2] if v else float("nan")
+
+    log(f"[loop] {LOOP_SCANS} scans in {t_loop:.3f} s = "
+        f"{LOOP_SCANS / t_loop:.2f} scans/s; {len(alog.rows)} attempts, "
+        f"{len(with_cand)} with a candidate, {len(accepted)} accepted "
+        f"(loop factors {int(st_l.loops.count)}); ICP iterations per attempt "
+        f"with a candidate min/median/max {iters[:1]}/{median(iters)}/"
+        f"{iters[-1:]}; ms per close_and_correct median "
+        f"{median([r['ms'] for r in with_cand]):.1f} with a candidate, "
+        f"{median([r['ms'] for r in accepted]):.1f} accepted (pose-graph "
+        f"solve included), {median([r['ms'] for r in alog.rows]):.1f} over "
+        f"all; of it ms per ICP median {median(alog.icp.ms):.1f} "
+        f"({sum(alog.icp.ms) / max(sum(iters), 1):.2f} per iteration), per "
+        f"pose-graph solve median {median(alog.solve.ms):.1f}; K3 launches "
+        f"{path_launches['knn']} "
+        f"({sum(r['knn'] for r in alog.rows)} in attempts); fused ATE "
+        f"{ate_l:.4f} m; {n_l} keyframes; max |det R - 1| "
+        f"{float((dets - 1).abs().max()):.2e}; launches {path_launches} "
+        f"[{card}]")
+    if not accepted:
+        fail("loop: no accepted closure")
+    if not ate_l < 0.5:
+        fail(f"loop: fused ATE {ate_l:.4f} m >= 0.5 m")
+    if not (torch.isfinite(fused_l.t).all() and torch.isfinite(kf_l.R).all()
+            and torch.isfinite(kf_l.t).all()):
+        fail("loop: non-finite pose")
+    if float((dets - 1).abs().max()) >= 1e-3:
+        fail("loop: a stored rotation has |det - 1| >= 1e-3")
+    # The timers stand in for module attributes; a caller that bound the
+    # function directly would bypass them and leave the readings empty.
+    if (len(alog.icp.ms), len(alog.solve.ms)) != (len(with_cand),
+                                                  len(accepted)):
+        fail(f"loop: {len(alog.icp.ms)} ICP and {len(alog.solve.ms)} solve "
+             f"timings for {len(with_cand)} attempts with a candidate and "
+             f"{len(accepted)} accepted")
+
+    # A resumed session on the loop run's map: fresh odometry, the robot
+    # boots at rest where the run ended (a rigid scan at the end of the
+    # last sweep), and the belief is the run's last mapped pose moved 20 m
+    # and turned 90 degrees.
+    P_end = Pose(poses_l.R[LOOP_SCANS], poses_l.t[LOOP_SCANS])
+    scan_end = synthetic.raycast_scan(synthetic.loop_scene(), P_end,
+                                      lcfg.sensor)
+    resumed = pipeline.init_slam_state(lcfg, dev)._replace(
+        mapping=kidnap(st_l).mapping, loops=st_l.loops)
+    (resumed, _), boot_launches = counted(lambda: pipeline.slam_scan_step(
+        resumed, *scan_end, lcfg, 0.1 * LOOP_SCANS + 600.0,
+        run_mapping=False))
+
+    # K3 at the two ICP shapes: the accepted attempt's clouds, and the
+    # resumed scan's cloud at the mapped pose against the latest
+    # keyframe's window.
+    (cq, cqv), (hr, hrv) = alog.first["cur"], alog.first["hist"]
+    icp_sets = {"loop ICP": (cq, cqv, hr, hrv),
+                "relocalization ICP": reloc_clouds(resumed, lcfg,
+                                                   st_l.mapping.t_aft)}
+    for name, (q, qv, r, rv) in icp_sets.items():
+        err["knn"] = max(err["knn"], check_knn(
+            f"{name} {q.shape[0]} x {r.shape[0]} k=1 ungated", q, qv, r, rv,
+            1, None))
+    for name, (q, qv, r, rv) in icp_sets.items():
+        p = knn_cuda.gated_pairs(q, qv, r, rv, None)
+        b, by = bound_ms(knn_bytes(q.shape[0], r.shape[0], 1), 8.0 * p)
+        per = device_us_per_launch(lambda: knn_cuda.knn(q, qv, r, rv, 1),
+                                   sessions=6)
+        ms = time_ms(lambda: knn_cuda.knn(q, qv, r, rv, 1), 50)
+        bare_k = bare_ms(bare_knn(q, qv, r, rv, 1, None), 50)
+        plain = time_ms(lambda: voxel.knn(q, qv, r, rv, 1), 3, 1)
+        lib = time_ms(lambda: library_knn(q, qv, r, rv, 1), 3, 1)
+        log(f"[knn] {name} {q.shape[0]} x {r.shape[0]} 1-NN ungated: ms "
+            f"{ms:.4f}, bare {bare_k:.4f}, device " + (", ".join(
+                f"{k} {v:.2f} us" for k, v in per.items()) or "not measured")
+            + f", bound {b:.6f} ({by}, {p} pairs), plain {plain:.3f}, "
+            f"library {lib:.2f} [{card}]")
+    H = torch.randn(3, 3, generator=torch.Generator().manual_seed(3)).to(dev)
+    log(f"[icp] 3x3 rotation (icp.kabsch_rotation, torch.linalg.svd): "
+        f"{time_ms(lambda: icp.kabsch_rotation(H), 200):.4f} ms a call "
+        f"[{card}]")
+
+    (cg, cc), (fg, fc), pos_gap, cpu_s = attempt_card_vs_cpu(
+        alog.first, lcfg, dev)
+    fit_rel = abs(fg - fc) / max(abs(fc), 1e-30)
+    log(f"[loop parity] first accepted attempt, card vs CPU: closed {cg} / "
+        f"{cc}, fitness {fg:.6f} / {fc:.6f} ({fit_rel:.2g} relative), "
+        f"largest corrected keyframe position difference {pos_gap:.3g} m "
+        f"(bounds: equal flags, fitness {ATTEMPT_FIT_REL} relative, "
+        f"positions {ATTEMPT_POS_TOL} m); CPU {cpu_s:.1f} s")
+    if cg != cc:
+        fail("loop parity: the card and the CPU disagree on the closure")
+    if cg and (fit_rel > ATTEMPT_FIT_REL or pos_gap > ATTEMPT_POS_TOL):
+        fail("loop parity: card and CPU outside the stated bounds")
+
+    # 8. Decimation: the loop run's final store on the card and the CPU,
+    #    then a run whose 36-keyframe store is decimated mid-run.
+    d_count, d_loops, d_dropped, d_exact, d_gap = decimate_card_vs_cpu(
+        kf_l, st_l.loops, dev)
+    log(f"[decimate] loop store {n_l} -> {d_count} keyframes (keep_recent "
+        f"32), loop factors {d_loops} ({d_dropped} dropped), card vs CPU: "
+        f"counts, times, validity and factors equal {d_exact}, largest pose "
+        f"difference {d_gap:.3g}")
+    if not d_exact or d_gap > 1e-5:
+        fail("decimate: card and CPU differ")
+    fires = []
+    guard = pipeline.maybe_decimate
+
+    def counting_guard(state, c, margin=16):
+        state, fired = guard(state, c, margin)
+        fires.append(fired)
+        return state, fired
+
+    dcfg = cfg.replace(mapping=dataclasses.replace(
+        cfg.mapping, max_keyframes=DECIMATE_CAP,
+        decimate_keep_recent=DECIMATE_RECENT))
+    pipeline.maybe_decimate = counting_guard
+    try:
+        (fused_d, st_d), paths["decimation"] = counted(
+            lambda: pipeline.run_slam_sequence(scans, dcfg, device=dev))
+    finally:
+        pipeline.maybe_decimate = guard
+    ate_d = float(metrics.ate_rmse(fused_d.t, gt))
+    log(f"[decimate] {N_SCANS} scans with a {DECIMATE_CAP}-keyframe store: "
+        f"maybe_decimate fired {sum(fires)} of {len(fires)} checks, "
+        f"{int(st_d.mapping.kf.count)} keyframes at the end, overflow "
+        f"{int(st_d.mapping.kf.overflow)}, fused ATE {ate_d:.4f} m")
+    if not any(fires) or int(st_d.mapping.kf.overflow) != 0:
+        fail("decimate: the guard never fired or the store overflowed")
+    if not (torch.isfinite(fused_d.t).all() and ate_d < 0.2):
+        fail(f"decimate: fused ATE {ate_d:.4f} m")
+
+    # 9. The IMU path over the main-path world.
+    integ = imu_integral(poses)
+    fused_i, paths["imu"] = counted(lambda: imu_run(scans, integ, cfg, dev))
+    ate_i = float(metrics.ate_rmse(fused_i, gt))
+    f_cpu = imu_run([tuple(a.cpu() for a in s) for s in first], integ, cfg,
+                    "cpu")
+    gap_i = float((fused_i[:N_PARITY_SCANS].cpu() - f_cpu).abs().max())
+    med_i = imu_stage_times(scans, integ, cfg, dev)
+    log(f"[imu] {N_SCANS} scans: fused ATE {ate_i:.4f} m; first "
+        f"{N_PARITY_SCANS} scans card vs CPU {gap_i:.3g} m; "
+        f"process_scan_with_imu median ms per stage: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in med_i.items())
+        + f"; launches {paths['imu']} [{card}]")
+    if not (torch.isfinite(fused_i).all() and ate_i < 0.2):
+        fail(f"imu: fused ATE {ate_i:.4f} m >= 0.2 m")
+    if gap_i >= 1e-3:
+        fail(f"imu: card vs CPU {gap_i:.3g} m >= 1e-3 m")
+
+    # 10. Relocalization of the resumed session's first scan.
+    sync(dev)
+    t0 = time.perf_counter()
+    (st_r, rdiag), reloc_launches = counted(
+        lambda: relocalize.relocalize_slam_state(resumed, lcfg))
+    sync(dev)
+    t_rel = time.perf_counter() - t0
+    paths["relocalization"] = {k: boot_launches[k] + reloc_launches[k]
+                               for k in reloc_launches}
+    # The relocalized position, mapped to the world by the ATE's alignment
+    # of the run, is held to the pose where the resumed scan was taken.
+    # Also printed: the distance to the run's own fused pose of its last
+    # scan, whose sweep ended there.
+    T_r = st_r.mapping.t_aft
+    R_a, t_a, _ = metrics.umeyama_alignment(fused_l.t, gt_l)
+    err_gt = float((R_a @ T_r.t + t_a - P_end.t).norm())
+    err_fused = float((T_r.t - fused_l.t[-1]).norm())
+    rot_fused = math.degrees(float(se3.so3_log(
+        T_r.R.T @ fused_l.R[-1]).norm()))
+    prior_err = float((resumed.mapping.t_aft.t - fused_l.t[-1]).norm())
+    log(f"[reloc] resumed on the loop run's map, belief moved "
+        f"{RELOC_SHIFT_M} m and {RELOC_YAW_DEG} deg from the last mapped "
+        f"pose: accepted {bool(rdiag.accepted)}, keyframe "
+        f"{int(rdiag.candidate)}, fitness {float(rdiag.fitness):.4f}, "
+        f"{int(rdiag.n_candidates)} candidates; position error against "
+        f"ground truth {err_gt:.4f} m; {err_fused:.4f} m and "
+        f"{rot_fused:.3f} deg from the run's fused pose of that place (the "
+        f"belief {prior_err:.2f} m; fused ATE {ate_l:.4f} m); "
+        f"{t_rel:.3f} s, K3 launches "
+        f"{reloc_launches['knn']} [{card}]")
+    if not bool(rdiag.accepted) or not err_gt < 0.3:
+        fail(f"reloc: accepted {bool(rdiag.accepted)}, error {err_gt:.4f} m")
+
+    # Every kernel of each path ran in it; the kernels line counts every
+    # path's launches.
+    for name, counts in paths.items():
+        for k in counts:
+            if counts[k] <= 0:
+                fail(f"{name} path: kernel {k} was never launched")
+    log("[launches] per path: " + "; ".join(
+        f"{name} {counts}" for name, counts in paths.items()))
+    for r in rows:
+        r["launches"] = sum(c[r["name"]] for c in paths.values())
+        r["max_abs_err"] = err[r["name"]]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

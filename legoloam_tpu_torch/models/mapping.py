@@ -1,5 +1,5 @@
-"""Scan-to-map refinement + keyframe store (port of
-``legoloam_tpu/models/mapping.py`` up to ``mapping_step``; reference
+"""Scan-to-map refinement, keyframe store and keyframe decimation (port of
+``legoloam_tpu/models/mapping.py``; reference
 ``src/mapOptmization.cpp:376-1522``).
 
 The keyframe store is a preallocated ring of fixed-cap clouds and poses;
@@ -433,10 +433,11 @@ def _trust_region(guess: Pose, T: Pose, cfg: MappingConfig) -> Pose:
 def mapping_step(state: MapState, corner_cloud: FeatureCloud,
                  surf_cloud: FeatureCloud, outlier_cloud: FeatureCloud,
                  odom_pose: Pose, scan_time, cfg: MappingConfig,
-                 ground_cloud: FeatureCloud | None = None):
+                 imu_rpy=None, ground_cloud: FeatureCloud | None = None):
     """One mapping update (mapOptmization.cpp:1487-1522).  The keyframe
     store of ``state`` is written in place; returns (new state, mapped pose,
-    diag)."""
+    diag).  ``imu_rpy``: the IMU attitude at scan end, toward which roll and
+    pitch are blended by ``cfg.imu_blend``."""
     dev = odom_pose.t.device
     guess = se3.where_pose(
         state.initialized,
@@ -464,6 +465,14 @@ def mapping_step(state: MapState, corner_cloud: FeatureCloud,
     if ground_cloud is not None and cfg.ground_anchor > 0:
         T, ground_ref, ground_ref_ok = _ground_anchor(
             T, ground_cloud, ground_ref, ground_ref_ok, cfg)
+    if imu_rpy is not None:
+        # transformUpdate (mapOptmization.cpp:463-496): roll and pitch
+        # blended toward the IMU attitude.
+        roll, pitch, yaw = se3.mat_to_euler_zyx(T.R)
+        w = cfg.imu_blend
+        roll = (1.0 - w) * roll + w * imu_rpy[0]
+        pitch = (1.0 - w) * pitch + w * imu_rpy[1]
+        T = Pose(se3.euler_zyx_to_mat(roll, pitch, yaw), T.t)
     T = Pose(se3.so3_project(T.R), T.t)
 
     # saveKeyFramesAndFactor: a keyframe when moved >= keyframe_dist (the
@@ -500,3 +509,67 @@ def mapping_step(state: MapState, corner_cloud: FeatureCloud,
         n_submap_surf=torch.sum(cache.s_valid), kf_overflow=overflow_now,
         submap_overflow=cache.voxel_overflow)
     return new_state, T, diag
+
+
+# ---------------------------------------------------------------------------
+# Keyframe decimation
+# ---------------------------------------------------------------------------
+
+def decimate_keyframes(kf: KeyframeStore, loops, keep_recent: int = 512):
+    """Halve a (nearly) full keyframe store: keep keyframe 0 (the prior's
+    anchor), the ``keep_recent`` most recent and every second older one,
+    compacted to the front in order.  Chain measurements are re-derived
+    between the now-adjacent survivors from the current poses; each loop
+    factor's endpoints move to their nearest surviving predecessors with the
+    measurement compensated, Z' = (T_ai⁻¹ T_i) Z (T_j⁻¹ T_aj), and a factor
+    whose endpoints collapse onto one node is invalidated and counted in
+    ``dropped``.  Returns a new ``(kf, loops)``; the submap cache must be
+    marked stale (indices moved)."""
+    M = kf.t.shape[0]
+    dev = kf.t.device
+    idx = torch.arange(M, device=dev)
+    count = kf.count.long()
+    keep = (idx < count) & ((idx >= count - keep_recent) | (idx % 2 == 0))
+    n_keep = torch.sum(keep).to(torch.int32)
+    # New slot -> old index: a stable sort puts the survivors first.
+    src = torch.sort((~keep).to(torch.int32), stable=True).indices
+    gone = idx >= n_keep
+
+    def take(arr, inert=0):
+        g = arr[src]
+        g[gone] = inert
+        return g
+
+    eye = torch.eye(3, dtype=kf.R.dtype, device=dev)
+    R_new, t_new = take(kf.R, eye), take(kf.t)
+    meas = se3.relative(Pose(torch.roll(R_new, 1, 0), torch.roll(t_new, 1, 0)),
+                        Pose(R_new, t_new))
+    chain_ok = ~gone & (idx > 0)
+    kf_out = KeyframeStore(
+        R=R_new, t=t_new, time=take(kf.time),
+        chain_R=torch.where(chain_ok[:, None, None], meas.R, eye),
+        chain_t=torch.where(chain_ok[:, None], meas.t, 0.0),
+        corner=take(kf.corner), corner_valid=take(kf.corner_valid, False),
+        surf=take(kf.surf), surf_valid=take(kf.surf_valid, False),
+        count=n_keep, overflow=kf.overflow)
+
+    # old2new[i]: the new slot of i's nearest surviving predecessor.
+    old2new = torch.clamp(torch.cumsum(keep.to(torch.int64), 0) - 1, min=0)
+    li, lj = loops.i.long(), loops.j.long()
+    ni, nj = old2new[li], old2new[lj]
+    ai, aj = src[ni], src[nj]                 # the anchors' old indices
+    Z = Pose(loops.R, loops.t)
+    Z_new = se3.compose(
+        se3.relative(Pose(kf.R[ai], kf.t[ai]), Pose(kf.R[li], kf.t[li])),
+        se3.compose(Z, se3.relative(Pose(kf.R[lj], kf.t[lj]),
+                                    Pose(kf.R[aj], kf.t[aj]))))
+    v = loops.valid
+    collapsed = v & (ni == nj)
+    loops_out = loops._replace(
+        i=torch.where(v, ni.to(torch.int32), loops.i),
+        j=torch.where(v, nj.to(torch.int32), loops.j),
+        R=torch.where(v[:, None, None], Z_new.R, loops.R),
+        t=torch.where(v[:, None], Z_new.t, loops.t),
+        valid=v & ~collapsed,
+        dropped=loops.dropped + torch.sum(collapsed).to(torch.int32))
+    return kf_out, loops_out

@@ -203,10 +203,14 @@ def _lm_loop(cloud: FeatureCloud, last: FeatureCloud, xi0, cfg,
 
 
 def odometry_step(state: OdometryState, feats: ScanFeatures,
-                  cfg: OdometryConfig, xi_seed=None
+                  cfg: OdometryConfig, xi_seed=None, imu_rot=None
                   ) -> Tuple[OdometryState, Pose, OdometryDiag]:
     """One scan's features -> (new state, world pose at scan end, diag).
-    ``xi_seed`` overrides the constant-velocity prior."""
+    ``xi_seed`` overrides the constant-velocity prior (the IMU initial
+    guess, featureAssociation.cpp:1639-1664).  ``imu_rot``, the gyro's
+    rotation over the scan, pulls the solved rotation toward it by
+    ``cfg.imu_rotation_blend`` (PluginIMURotation,
+    featureAssociation.cpp:955-1013)."""
     xi0 = state.xi if xi_seed is None else xi_seed
     can_solve = (state.initialized
                  & (state.last_corner.count >= cfg.min_corner_last)
@@ -217,6 +221,9 @@ def odometry_step(state: OdometryState, feats: ScanFeatures,
                                     cfg, _find_corner_corr, _CORNER_DOF,
                                     is_line=True)
     xi = torch.where(can_solve, xi_b, xi0)
+    if imu_rot is not None and cfg.imu_rotation_blend > 0:
+        b = cfg.imu_rotation_blend
+        xi = torch.cat([(1.0 - b) * xi[:3] + b * imu_rot, xi[3:]])
 
     # integrateTransformation (featureAssociation.cpp:1697-1725), with the
     # accumulated rotation kept orthonormal.

@@ -59,15 +59,18 @@ def _compaction_perm(segmented: torch.Tensor):
     return perm, count
 
 
-def _compact_rings(img: RangeImage, seg: Segmentation):
+def _compact_rings(img: RangeImage, seg: Segmentation, xyz_deskewed=None):
     """Per-ring compaction of segmented cells into column order: a dict of
-    (N, H) channels in compacted layout + per-ring counts."""
+    (N, H) channels in compacted layout + per-ring counts.  The cell
+    coordinates are ``xyz_deskewed`` when given; the ranges stay the
+    projected ones."""
     perm, count = _compaction_perm(seg.segmented)
     n, h = perm.shape
     cols = torch.arange(h, dtype=torch.float32,
                         device=perm.device).expand(n, h)
     stacked = torch.cat([
-        img.xyz, img.rng[..., None], cols[..., None],
+        img.xyz if xyz_deskewed is None else xyz_deskewed,
+        img.rng[..., None], cols[..., None],
         seg.seg_ground_flag.to(torch.float32)[..., None],
         img.rel_time[..., None],
         seg.segmented.to(torch.float32)[..., None]], dim=-1)
@@ -78,16 +81,18 @@ def _compact_rings(img: RangeImage, seg: Segmentation):
 
 
 def extract_features(img: RangeImage, seg: Segmentation, sensor: SensorConfig,
-                     cfg: FeatureConfig) -> ScanFeatures:
-    """Full feature extraction (the no-IMU path: cell coordinates as
-    projected)."""
+                     cfg: FeatureConfig, xyz_deskewed=None) -> ScanFeatures:
+    """Full feature extraction.  ``xyz_deskewed`` (N, H, 3), the IMU
+    de-skewed cell coordinates, replaces the projected ones in every cloud;
+    curvature keeps the projected ranges, as the reference computes it from
+    the pre-deskew ranges (featureAssociation.cpp:624-629)."""
     n, h = img.rng.shape
-    c, count = _compact_rings(img, seg)
+    c, count = _compact_rings(img, seg, xyz_deskewed)
     idx = torch.arange(h, device=count.device).expand(n, h)
     in_ring = idx < count[:, None]
     rng = torch.where(in_ring, c["rng"], torch.zeros_like(c["rng"]))
     label = pick_labels(rng, c["col"], c["ground"], count, cfg)
-    return _build_clouds(img, seg, c, in_ring, label, cfg)
+    return _build_clouds(img, seg, c, in_ring, label, cfg, xyz_deskewed)
 
 
 def _compact_cloud(mask, cap: int, xyz, ring, rel):
@@ -110,7 +115,8 @@ def _compact_cloud(mask, cap: int, xyz, ring, rel):
                         rel_time=out[:, 4] * z, valid=out_ok), n_dropped
 
 
-def _build_clouds(img, seg, c, in_ring, label, cfg: FeatureConfig):
+def _build_clouds(img, seg, c, in_ring, label, cfg: FeatureConfig,
+                  xyz_deskewed=None):
     """Label grid -> the five fixed-cap feature clouds."""
     n, h = img.rng.shape
     ring_f = torch.arange(n, dtype=torch.float32,
@@ -141,8 +147,10 @@ def _build_clouds(img, seg, c, in_ring, label, cfg: FeatureConfig):
         less_flat = FeatureCloud(xyz=pts, ring=pay[:, 0],
                                  rel_time=pay[:, 1], valid=v)
 
-    outlier, out_drop = _compact_cloud(seg.outlier, cfg.max_outlier, img.xyz,
-                                       ring_f, img.rel_time)
+    outlier, out_drop = _compact_cloud(
+        seg.outlier, cfg.max_outlier,
+        img.xyz if xyz_deskewed is None else xyz_deskewed, ring_f,
+        img.rel_time)
     overflow = torch.stack([sharp_drop, ls_drop, flat_drop, lf_drop,
                             out_drop]).to(torch.int32)
     return ScanFeatures(sharp=sharp, less_sharp=less_sharp, flat=flat,

@@ -6,6 +6,8 @@
     Morton code (spatially sorted output, collision-free within range).
     Keys are the JAX package's uint32 values, carried in int64 with the
     wrap-around reproduced by ``& 0xFFFFFFFF``.
+  * ``voxel_representative``: one input point per hash slot (the ICP
+    target clouds of loop closure and relocalization).
   * ``class_nn``: nearest reference within a key class (the odometry's
     ring-windowed correspondence search), in the JAX package's matrix form.
   * ``knn``: the plain k-pass k-NN — the plain version of kernel K3
@@ -129,6 +131,27 @@ def voxel_downsample_with_payload(points, payload, valid, leaf: float,
     return out, outp, out_valid
 
 
+def voxel_representative(points, valid, leaf: float, cap: int):
+    """One representative point per voxel through a ``cap``-slot hash table
+    (``cap`` a power of two) and one scatter-min: the lowest input index of
+    each slot wins, so the result is deterministic.  Colliding voxels lose
+    all but one of their points; for an ICP target cloud that can only raise
+    the fitness.  Returns (out (cap, 3), ok (cap,))."""
+    if cap & (cap - 1):
+        raise ValueError(f"voxel_representative: cap {cap} is not a power "
+                         "of two")
+    n = points.shape[0]
+    dev = points.device
+    slot = _hash_voxel(voxel_cells(points, leaf)) & (cap - 1)
+    slot = torch.where(valid, slot, torch.full_like(slot, cap))
+    rep = torch.full((cap + 1,), n, dtype=torch.int64, device=dev)
+    rep.scatter_reduce_(0, slot, torch.arange(n, device=dev), "amin")
+    rep = rep[:cap]
+    ok = rep < n
+    out = points[torch.where(ok, rep, torch.zeros_like(rep))]
+    return out * ok[:, None], ok
+
+
 def class_nn(query, ref, r_valid, ref_key, key_lo, key_hi, excl_le,
              q_tile: int = 512, n_classes: int = 1):
     """Per-query nearest reference within a KEY CLASS: for class c, query q,
@@ -177,8 +200,11 @@ def knn(query, q_valid, ref, r_valid, k: int, q_tile: int = 2048):
     select by the matrix-form distance excluding earlier picks, then
     recompute the winners' distances in difference form and re-sort.
     Returns (sq_dists (Q, k), indices (Q, k) int64); invalid queries get
-    all-1e30 rows.  Plain version of kernel K3 (``knn_cuda.knn``)."""
+    all-1e30 rows.  Plain version of kernel K3 (``knn_cuda.knn``).  On the
+    CPU a query tile holds at most 2^20 distances, so it stays in cache."""
     q_n = query.shape[0]
+    if not query.is_cuda:
+        q_tile = max(1, min(q_tile, (1 << 20) // max(ref.shape[0], 1)))
     query, ref = recentre(query, ref, r_valid)
     ref_m = torch.where(r_valid[:, None], ref, torch.full_like(ref, 1e6))
     r_sq = torch.sum(ref_m * ref_m, dim=-1)
@@ -186,16 +212,15 @@ def knn(query, q_valid, ref, r_valid, k: int, q_tile: int = 2048):
     out_d, out_i = [], []
     for qs in range(0, q_n, q_tile):
         qe = min(qs + q_tile, q_n)
-        d = (q_sq[qs:qe, None] - 2.0 * (query[qs:qe] @ ref_m.T)
-             + r_sq[None, :])
-        m_prev = torch.full((qe - qs,), -float("inf"), device=query.device)
+        d = query[qs:qe] @ ref_m.T
+        d.mul_(-2.0).add_(q_sq[qs:qe, None]).add_(r_sq[None, :])
         ds, is_ = [], []
-        for _ in range(k):
-            dv, am = torch.min(d + (d <= m_prev[:, None]).to(d.dtype) * BIG,
-                               dim=1)
+        for j in range(k):
+            # Pick j excludes everything at or below pick j-1's distance.
+            dv, am = torch.min(d if j == 0 else torch.where(
+                d <= ds[-1][:, None], d + BIG, d), dim=1)
             ds.append(dv)
             is_.append(am)
-            m_prev = dv
         out_d.append(torch.stack(ds, dim=1))
         out_i.append(torch.stack(is_, dim=1))
     dists = torch.cat(out_d, dim=0)

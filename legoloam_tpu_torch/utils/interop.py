@@ -16,12 +16,13 @@ from ..models.mapping import KeyframeStore, MapState, SubmapCache
 from ..models.odometry import OdometryState
 from ..models.pipeline import SlamState
 from ..models.posegraph import LoopFactors
+from ..ops.deskew import ImuIntegral, ImuWindow
 from ..ops.features import FeatureCloud, ScanFeatures
 from ..ops.se3 import Pose
 
 STATE_TYPES = {cls.__name__: cls for cls in (
     SlamState, OdometryState, MapState, KeyframeStore, SubmapCache, Pose,
-    FeatureCloud, ScanFeatures, LoopFactors)}
+    FeatureCloud, ScanFeatures, LoopFactors, ImuWindow, ImuIntegral)}
 
 
 def _leaf_to_tensor(a, device) -> torch.Tensor:
@@ -35,8 +36,9 @@ def _leaf_to_tensor(a, device) -> torch.Tensor:
 
 def slam_state_from_numpy(tree, device):
     """JAX-package state (``SlamState``, ``OdometryState``, ``MapState``, a
-    scan's ``ScanFeatures``, or any of their parts) as NamedTuples of numpy
-    arrays -> the port's state on ``device``."""
+    scan's ``ScanFeatures``, an ``ImuWindow`` or ``ImuIntegral``, or any of
+    their parts) as NamedTuples of numpy arrays -> the port's state on
+    ``device``."""
     fields = getattr(tree, "_fields", None)
     if fields is None:
         return _leaf_to_tensor(tree, device)

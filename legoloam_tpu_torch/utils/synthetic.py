@@ -1,5 +1,6 @@
 """Synthetic LiDAR worlds: ray-cast VLP-16-style scans with ground-truth
-poses (port of the scan generator of ``legoloam_tpu/utils/synthetic.py``).
+poses, and IMU samples along a trajectory (port of the scan and IMU
+generators of ``legoloam_tpu/utils/synthetic.py``).
 
 Scenes are a ground plane z = 0, axis-aligned boxes and vertical cylinders.
 Scan point order mimics a real Velodyne: one column (all rings) per firing,
@@ -16,6 +17,7 @@ import torch
 from ..config import SensorConfig
 from ..ops import se3
 from ..ops.se3 import Pose
+from ..ops.voxel import div
 
 MAX_RANGE = 100.0
 
@@ -105,6 +107,39 @@ def circle_trajectory(n_scans: int, radius: float = 8.0, height: float = 0.8,
     t = torch.stack([radius * torch.sin(th), radius * (1 - torch.cos(th)),
                      torch.full_like(th, height)], dim=-1)
     return Pose(se3.rot_z(th), t)
+
+
+def make_imu(poses: Pose, scan_period: float = 0.1, rate_hz: float = 200.0):
+    """IMU samples along a scan-pose trajectory (poses ``scan_period``
+    apart): (time (L,), rpy (L, 3), acc (L, 3) specific force in the sensor
+    frame, gyro (L, 3) sensor-frame rate) at ``rate_hz``, on the poses'
+    device.  The inverse of what ``ops.deskew`` integrates: attitude from
+    the pose spline, gyro from finite rotation differences, specific force
+    Rᵀ(a_world - g) with g = (0, 0, -9.81)."""
+    n = poses.t.shape[0]
+    dev = poses.t.device
+    L = int((n - 1) * scan_period * rate_hz) + 1
+    ts = div(torch.arange(L, dtype=torch.float32, device=dev), rate_hz)
+    dt = 1.0 / rate_hz
+
+    def attitude(t):
+        u = div(t, scan_period)
+        seg = torch.clamp(u.to(torch.int32), 0, n - 2).long()
+        frac = u - seg
+        return se3.so3_interp(poses.R[seg], poses.R[seg + 1], frac), seg, frac
+
+    R_t, seg, frac = attitude(ts)
+    rpy = torch.stack(se3.mat_to_euler_zyx(R_t), dim=-1)
+    R_t2, _, _ = attitude(ts + dt)
+    gyro = div(se3.so3_log(R_t.transpose(-1, -2) @ R_t2), dt)
+    # The position spline is piecewise linear; a centred difference smooths
+    # its knots into finite accelerations.
+    pos = poses.t[seg] + frac[:, None] * (poses.t[seg + 1] - poses.t[seg])
+    vel = torch.gradient(pos, spacing=dt, dim=0)[0]
+    acc_w = torch.gradient(vel, spacing=dt, dim=0)[0]
+    g = torch.tensor([0.0, 0.0, -9.81], device=dev)
+    f_body = se3.rotate_vec(R_t.transpose(-1, -2), acc_w - g)
+    return ts, rpy, f_body, gyro
 
 
 PICK_STRESS_COUNTS = (0, 5, 11, 12, 13, 40)

@@ -15,6 +15,12 @@ from legoloam_tpu.models import pipeline as jpipe
 from legoloam_tpu.ops.se3 import Pose as JPose
 from legoloam_tpu.utils import synthetic as jsyn
 
+# One intra-op thread per test process: the suite runs several workers at
+# once, and PyTorch's default of one thread per core in each of them
+# oversubscribes the cores (the port's tests on six workers of an 8-core
+# machine: 655 s with the default, 315 s with one thread each).
+torch.set_num_threads(1)
+
 # CPU-sized mapping capacities (as tests/test_slam_block.py's SMALL_MAP, with
 # the default batched submap folds).
 SMALL_MAP = dataclasses.replace(

@@ -39,14 +39,27 @@ def test_config_apply_overrides_equal():
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
+PORT_MODULES = [
+    "ops.deskew", "ops.icp", "ops.voxel", "ops.knn_cuda", "ops.smallalg",
+    "models.posegraph", "models.loopclosure", "models.relocalize",
+    "models.mapping", "models.pipeline", "utils.interop",
+    "utils.synthetic"]
+
+
 def test_port_imports_no_jax():
-    """Importing every module of the port, and chip_smoke without running
-    it, loads neither jax nor the JAX package."""
+    """Importing every module of the port (the IMU, ICP, pose-graph, loop
+    closure and relocalization modules among them), and chip_smoke without
+    running it, loads neither jax nor the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import legoloam_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__,\n"
+        "                                                p.__name__ + '.')]\n"
+        f"missing = set('legoloam_tpu_torch.' + m for m in {PORT_MODULES!r})"
+        " - set(names)\n"
+        "assert not missing, missing\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'legoloam_tpu' or k.startswith('legoloam_tpu.')]\n"
