@@ -57,22 +57,46 @@ Phases, each fatal on failure (exit code != 0, no result line):
  10. a resumed session on the loop run's map: fresh odometry, a rigid scan
      where the run's last sweep ended, the belief moved 20 m and 90 degrees
      from the last mapped pose; relocalize_slam_state accepts, < 0.3 m
-     from ground truth (the map frame aligned as for the ATE).
-  Each path's kernel launches are counted around its run; the kernels line
-  sums them.
+     from ground truth (the map frame aligned as for the ATE);
+ 11. [io] 300 + 40 DEFAULT scans of the main-path world written as .lpk
+     files and an IMU1 sidecar, read back by the prefetching ScanLoader
+     (csrc/legoio.cpp, built with g++) bitwise equal;
+ 12. [cli] ``python -m legoloam_tpu_torch`` in a subprocess over the 300
+     files with --imu --loop-closure, checkpoints and maps every 100 and
+     debug dumps every 50: the five outputs, fused ATE < 0.2 m, a map,
+     the checkpoint's keyframes = the mapped poses, the dumps' record names
+     and pick labels equal to K2's on the same scans; its profile.txt;
+ 13. [cli resume] a second session from the checkpoint with --relocalize
+     over 40 files from pose 150 (mid-course, the first scan rigid):
+     accepted, map-frame error < 0.3 m RMS over scans 1..39;
+ 14. [export] assemble_global_map of the DEFAULT store, timed with its peak
+     memory, against the CPU's map of the same keyframes (bounds stated at
+     EXPORT_*);
+ 15. [memory] slam_state_bytes(DEFAULT) = 547,055,832 B, and the
+     allocation around init_slam_state(DEFAULT) within 57 x 512 B of it;
+ 16. [kidnap] evals.kidnap at its defaults: B's abs ATE < 0.3 m and at
+     least 2x better than A's;
+ 17. [recovery] evals.loop_recovery at its defaults: the ON arm's error
+     over the last 100 scans under half the OFF arm's.
+  Each path's kernel launches are counted around its run (the CLI runs
+  report theirs in profile.txt); the kernels line sums them.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
 
 import dataclasses
+import glob
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from legoloam_tpu_torch import DEFAULT
@@ -84,7 +108,10 @@ from legoloam_tpu_torch.ops import (_native, ccl_cuda, deskew, features,
                                     features_cuda, icp, knn_cuda, projection,
                                     se3, segmentation, voxel)
 from legoloam_tpu_torch.ops.se3 import Pose, transform_points
-from legoloam_tpu_torch.utils import metrics, synthetic
+from legoloam_tpu_torch.evals import kidnap as kidnap_eval
+from legoloam_tpu_torch.evals import loop_recovery
+from legoloam_tpu_torch.utils import (checkpoint, export, io, memory,
+                                      metrics, synthetic)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # outside the tensor cores.
@@ -110,6 +137,33 @@ DECIMATE_RECENT = 16
 RELOC_SHIFT_M = 20.0
 RELOC_YAW_DEG = 90.0
 KNN_REL_TOL = 1e-5
+# The CLI sessions: the main-path world written as scan files.  Session 1
+# covers 156 degrees of the ring; session 2 restarts mid-course at pose 150
+# with a rigid scan, from session 1's checkpoint.
+CLI_SCANS = 300
+RESUME_SCANS = 40
+RESUME_START = 150
+CLI_TIMEOUT_S = 600
+# The JAX package's debug-dump record names (legoloam_tpu/utils/
+# debugdump.py): the frontend capture, the mapping-state scalars, and one
+# record per odometry diagnostic.
+DUMP_RECORDS = {
+    "range", "xyz", "img_valid", "ground", "labels", "segmented", "outlier",
+    "curvature", "pick_label", "sharp_xyz", "sharp_valid", "flat_xyz",
+    "flat_valid", "feat_overflow", "kf_t", "kf_count", "kf_overflow",
+    "submap_corner_occ", "submap_surf_occ", "submap_origin", "loop_count",
+    "loop_dropped"} | {f"diag_{f}" for f in odometry.OdometryDiag._fields}
+# Global map, card vs CPU: the two round the keyframe transforms
+# differently, so a point within float32 rounding of a voxel face can land
+# in the neighbouring voxel.  Bounds: at most 0.1% of the voxel cells in
+# one map only, and 99.9% of the common cells' centroids within 1e-4 m
+# (float atomics on the card sum in no fixed order).
+EXPORT_CELLS_ONLY_ONE = 1e-3
+EXPORT_CENTROID_TOL = 1e-4
+EXPORT_CLOSE_SHARE = 0.999
+# The state's 57 tensors: the allocator rounds each up to 512 bytes.
+STATE_BYTES = 547055832
+STATE_TENSORS = 57
 # Rows where the plain k-NN's neighbour set differs from the kernel's, and
 # gated rows compared, over the main path's two searches (see check_knn).
 MAIN_PATH_DIFF = {"rows": 0, "of": 0}
@@ -762,6 +816,304 @@ def ground_truth(poses, n):
 
 
 # ---------------------------------------------------------------------------
+# The command-line entry point, the utilities and the evaluations
+# ---------------------------------------------------------------------------
+
+def write_session(d, scene, poses, first, n, sensor, rigid_first=False):
+    """Ray-cast scans ``first .. first + n - 1`` of ``poses`` (scan k sweeps
+    from pose k to k + 1; with ``rigid_first`` the first is taken at rest)
+    and write each as ``d/scan_NNNN.lpk``.  Returns the paths and, per scan,
+    the (xyz, ring) numpy arrays of the points written."""
+    os.makedirs(d, exist_ok=True)
+    paths, written = [], []
+    for j in range(n):
+        k = first + j
+        if rigid_first and j == 0:
+            pts, valid, ring = synthetic.raycast_scan(
+                scene, Pose(poses.R[k], poses.t[k]), sensor)
+        else:
+            pts, valid, ring = synthetic.raycast_scan(
+                scene, Pose(poses.R[k], poses.t[k]), sensor,
+                next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
+        path = os.path.join(d, f"scan_{j:04d}.lpk")
+        io.write_lpk(path, pts, ring, valid)
+        v = valid.cpu().numpy()
+        written.append((pts.cpu().numpy()[v], ring.cpu().numpy()[v]))
+        paths.append(path)
+    return paths, written
+
+
+def check_read_back(paths, written, sensor):
+    """Read the files back with the prefetching ``ScanLoader``: every scan
+    bitwise equal to the points written, padded with invalid zeros.
+    Returns the read rate in scans/s."""
+    t0 = time.perf_counter()
+    n = 0
+    with io.ScanLoader(paths, point_cap=sensor.n_points,
+                       n_scan=sensor.n_scan,
+                       ang_bottom_deg=sensor.ang_bottom_deg,
+                       ang_res_y_deg=sensor.ang_res_y_deg) as loader:
+        for (xyz, valid, ring), (w_xyz, w_ring) in zip(loader, written):
+            m = w_xyz.shape[0]
+            if not (np.array_equal(xyz[:m], w_xyz)
+                    and np.array_equal(ring[:m], w_ring.astype(np.int32))
+                    and valid[:m].all() and not valid[m:].any()
+                    and not xyz[m:].any() and not ring[m:].any()):
+                fail(f"io: scan {n} read back differs from what was "
+                     "written")
+            n += 1
+    seconds = time.perf_counter() - t0
+    if n != len(paths):
+        fail(f"io: {n} of {len(paths)} scans read back")
+    return n / seconds
+
+
+def run_cli(args, what):
+    """``python -m legoloam_tpu_torch`` in a subprocess on the card; returns
+    its standard output.  Fails with the end of its output if it fails."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "legoloam_tpu_torch", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"{what}: exit {res.returncode}\n{res.stdout[-3000:]}\n"
+             f"{res.stderr[-3000:]}")
+    return res.stdout, res.stderr, seconds
+
+
+def cli_launches(out_dir):
+    """The run's kernel launches, from the CLI's profile.txt."""
+    text = open(os.path.join(out_dir, "profile.txt")).read()
+    m = re.search(r"^kernel launches: (.*)$", text, re.M)
+    if not m:
+        fail(f"cli: no kernel launches in {out_dir}/profile.txt")
+    counts = dict(part.rsplit(" ", 1) for part in m.group(1).split(", "))
+    return {name: int(counts.get(name, 0)) for name in _native.KERNELS}
+
+
+def check_dumps(dump_dir, paths, cfg, dev):
+    """Every debug record holds the JAX package's record names, and its
+    pick labels equal kernel K2's on the same scan read from its file.
+    Returns the scan indices checked."""
+    files = sorted(glob.glob(os.path.join(dump_dir, "scan_*.npz")))
+    if not files:
+        fail("cli: no debug dumps written")
+    checked = []
+    for f in files:
+        k = int(os.path.basename(f)[5:11])
+        rec = np.load(f)
+        if set(rec.files) != DUMP_RECORDS:
+            fail(f"cli: dump {k} records differ from the JAX package's: "
+                 f"{sorted(set(rec.files) ^ DUMP_RECORDS)}")
+        scan = tuple(torch.from_numpy(a).to(dev) for a in io.read_scan(
+            paths[k], cfg.sensor.n_points, cfg.sensor.n_scan,
+            cfg.sensor.ang_bottom_deg, cfg.sensor.ang_res_y_deg))
+        _, k2 = frontend_inputs(scan, cfg)
+        labels = features_cuda.pick_labels(*k2, cfg.feat)
+        if not np.array_equal(rec["pick_label"],
+                              labels.to(torch.int8).cpu().numpy()):
+            fail(f"cli: dump {k} pick labels differ from K2's")
+        checked.append(k)
+    return checked
+
+
+def tum_positions(path):
+    return torch.from_numpy(np.loadtxt(path, ndmin=2)[:, 1:4]).float()
+
+
+def export_card_vs_cpu(kf, n_kf, dev):
+    """``assemble_global_map`` of the whole DEFAULT store on the card, timed
+    with its peak memory; and the same map from the store's first
+    ``n_kf`` slots on the CPU (the slots beyond the count add nothing).
+    Returns (card voxels, card ms, peak bytes above the allocation before,
+    CPU voxels, voxel cells in one set only, the share of the cells in both
+    whose centroids agree within EXPORT_CENTROID_TOL, the largest centroid
+    difference)."""
+    leaf = 0.4
+    export.assemble_global_map(kf)              # warm: allocator, kernels
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pts, val = export.assemble_global_map(kf, leaf=leaf)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu_kf = type(kf)(*(a[:n_kf].cpu() if a.dim() and a.shape[0] ==
+                        kf.t.shape[0] else a.cpu() for a in kf))
+    c_pts, c_val = export.assemble_global_map(cpu_kf, leaf=leaf)
+    g = {tuple(c): p for c, p in zip(
+        torch.floor(pts[val] / leaf).long().cpu().tolist(),
+        pts[val].cpu())}
+    c = {tuple(c): p for c, p in zip(
+        torch.floor(c_pts[c_val] / leaf).long().tolist(), c_pts[c_val])}
+    common = sorted(g.keys() & c.keys())
+    diff = (torch.stack([g[k] for k in common])
+            - torch.stack([c[k] for k in common])).abs().amax(dim=1)
+    close = float((diff <= EXPORT_CENTROID_TOL).float().mean())
+    return (int(val.sum()), ms, peak, int(c_val.sum()),
+            len(g.keys() ^ c.keys()), close, float(diff.max()))
+
+
+def cli_phases(work, cfg, dev, card, paths):
+    """[io], [cli], [cli resume], [export], [memory]: the main-path world
+    written as scan files and replayed by ``python -m legoloam_tpu_torch``
+    in two sessions; each CLI run's kernel launches go into ``paths``."""
+    # 11. Scan files and the IMU sidecar, read back by the loader.
+    scene = synthetic.loop_scene().to(dev)
+    poses = synthetic.circle_trajectory(CLI_SCANS + 1, radius=30.0,
+                                        angular_rate=0.009, device=dev)
+    t0 = time.perf_counter()
+    s1, w1 = write_session(os.path.join(work, "s1"), scene, poses, 0,
+                           CLI_SCANS, cfg.sensor)
+    s2, w2 = write_session(os.path.join(work, "s2"), scene, poses,
+                           RESUME_START, RESUME_SCANS, cfg.sensor,
+                           rigid_first=True)
+    imu_path = os.path.join(work, "session1.imu")
+    ts, rpy, acc, gyro = synthetic.make_imu(poses)
+    io.write_imu(imu_path, ts, rpy, acc, gyro)
+    t_write = time.perf_counter() - t0
+    mb = sum(os.path.getsize(p) for p in s1 + s2) / 2**20
+    rate = check_read_back(s1 + s2, w1 + w2, cfg.sensor)
+    log(f"[io] {len(s1) + len(s2)} DEFAULT scans ray-cast and written as "
+        f".lpk ({mb:.1f} MiB) and an IMU1 sidecar of {ts.shape[0]} samples "
+        f"in {t_write:.2f} s; read back by ScanLoader bitwise equal at "
+        f"{rate:.1f} scans/s (library {io.library_path().parent.name})")
+
+    # 12. The CLI over session 1 on the card.
+    out1 = os.path.join(work, "cli")
+    dump = os.path.join(work, "dump")
+    stdout, stderr, sec = run_cli(
+        ["--scans", os.path.join(work, "s1", "*.lpk"), "--imu", imu_path,
+         "--loop-closure", "--checkpoint-every", "100", "--map-every", "100",
+         "--debug-dump", dump, "--debug-every", "50", "--out", out1], "cli")
+    names = ["trajectory_fused.txt", "trajectory_mapped.txt",
+             "global_map.pcd", "checkpoint.npz", "profile.txt"]
+    missing = [n for n in names if not os.path.exists(os.path.join(out1, n))]
+    if missing:
+        fail(f"cli: outputs missing: {missing}")
+    done = [ln for ln in stdout.splitlines()
+            if ln.startswith("[legoloam_tpu_torch] done:")]
+    fused = tum_positions(os.path.join(out1, "trajectory_fused.txt"))
+    if fused.shape != (CLI_SCANS, 3) or not done:
+        fail(f"cli: {fused.shape[0]} trajectory lines, done line {done}")
+    ate = float(metrics.ate_rmse(fused, ground_truth(poses, CLI_SCANS).cpu()))
+    n_pcd = export.read_pcd_xyz(os.path.join(out1, "global_map.pcd")).shape[0]
+    ck = checkpoint.load_state(os.path.join(out1, "checkpoint.npz"),
+                               pipeline.init_slam_state(cfg, dev))
+    n_kf = int(ck.mapping.kf.count)
+    n_mapped = np.loadtxt(os.path.join(out1, "trajectory_mapped.txt"),
+                          ndmin=2).shape[0]
+    checked = check_dumps(dump, s1, cfg, dev)
+    paths["cli"] = cli_launches(out1)
+    log(f"[cli] python -m legoloam_tpu_torch over {CLI_SCANS} files with "
+        f"--imu --loop-closure, checkpoints and maps every 100, dumps every "
+        f"50: {sec:.1f} s in the subprocess; {done[0]}; fused ATE "
+        f"{ate:.4f} m; global_map.pcd {n_pcd} points; checkpoint {n_kf} "
+        f"keyframes, {int(ck.loops.count)} loop factors, "
+        f"trajectory_mapped.txt {n_mapped} lines; dumps of scans {checked} "
+        f"hold the JAX record names and K2's labels; launches "
+        f"{paths['cli']} [{card}]")
+    for line in open(os.path.join(out1, "profile.txt")).read().splitlines():
+        log(f"[cli profile] {line}")
+    for line in stderr.splitlines():
+        if "warning" in line:
+            log(f"[cli] {line}")
+    if not ate < 0.2:
+        fail(f"cli: fused ATE {ate:.4f} m >= 0.2 m")
+    if n_pcd <= 0 or n_kf != n_mapped or n_kf <= 0:
+        fail(f"cli: {n_pcd} map points, {n_kf} keyframes in the checkpoint "
+             f"against {n_mapped} mapped poses")
+
+    # 13. Session 2 resumed from the checkpoint, relocalized, mid-course.
+    out2 = os.path.join(work, "resume")
+    stdout, _, sec = run_cli(
+        ["--scans", os.path.join(work, "s2", "*.lpk"), "--resume",
+         os.path.join(out1, "checkpoint.npz"), "--relocalize", "--out",
+         out2], "cli resume")
+    m = re.search(r"^\[reloc\] accepted=(\w+) candidate=(-?\d+) "
+                  r"fitness=(\S+)$", stdout, re.M)
+    est = tum_positions(os.path.join(out2, "trajectory_fused.txt"))
+    # Scan j >= 1 sweeps to pose RESUME_START + j + 1; the map frame is
+    # session 1's, where its scan 0 ended (pose 1).
+    j = torch.arange(1, RESUME_SCANS)
+    gt = ((poses.t[RESUME_START + 1 + j] - poses.t[1]) @ poses.R[1]).cpu()
+    err = (est[1:] - gt).norm(dim=1) if est.shape[0] == RESUME_SCANS \
+        else torch.full((1,), float("inf"))
+    rms = float(err.square().mean().sqrt())
+    paths["cli resume"] = cli_launches(out2)
+    log(f"[cli resume] --resume --relocalize over {RESUME_SCANS} files from "
+        f"pose {RESUME_START} (first scan rigid): {sec:.1f} s; "
+        f"{m.group(0) if m else 'no [reloc] line'}; map-frame error over "
+        f"scans 1..{RESUME_SCANS - 1} RMS {rms:.4f} m, max "
+        f"{float(err.max()):.4f} m; launches {paths['cli resume']} [{card}]")
+    if not m or m.group(1) != "True" or not rms < 0.3:
+        fail("cli resume: relocalization not accepted or error >= 0.3 m")
+
+    # 14. The global map at DEFAULT, card vs CPU.
+    n_vox, ms, peak, n_cpu, only_one, close, gap = export_card_vs_cpu(
+        ck.mapping.kf, n_kf, dev)
+    slots = ck.mapping.kf.t.shape[0]
+    n_pts = slots * (cfg.mapping.scan_corner_cap + cfg.mapping.scan_surf_cap)
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[export] assemble_global_map of the {slots}-slot store ({n_kf} "
+        f"keyframes; every slot transformed, {n_pts} points): {n_vox} "
+        f"voxels in {ms:.2f} ms, peak allocated {peak / 2**30:.3f} GiB "
+        f"above the {held:.3f} GiB held; CPU from the first {n_kf} slots "
+        f"{n_cpu} voxels, "
+        f"{only_one} cells in one map only, {close:.6f} of the common "
+        f"centroids within {EXPORT_CENTROID_TOL} m (largest difference "
+        f"{gap:.3g} m) [{card}]")
+    if n_vox <= 0 or only_one > EXPORT_CELLS_ONLY_ONE * n_vox \
+            or close < EXPORT_CLOSE_SHARE:
+        fail("export: card and CPU maps outside the stated bounds")
+
+    # 15. The state's bytes: from shapes alone, and as allocated.
+    del ck
+    total = memory.slam_state_bytes(cfg)["total"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fresh = pipeline.init_slam_state(cfg, dev)
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    log(f"[memory] slam_state_bytes(DEFAULT) {total} B; allocated around "
+        f"init_slam_state(DEFAULT) {delta} B ({delta - total:+d}); "
+        f"allocator {memory.measured(dev)}")
+    for line in memory.summary(cfg, 16).splitlines():
+        log(f"[memory] {line}")
+    del fresh
+    if total != STATE_BYTES or abs(delta - total) > STATE_TENSORS * 512:
+        fail(f"memory: {total} B from shapes, {delta} B allocated")
+
+
+def eval_phases(dev, card, paths):
+    """[kidnap] and [recovery]: the two end-to-end evaluations at their
+    defaults, with their kernel launches counted into ``paths``."""
+    t0 = time.perf_counter()
+    res, paths["kidnap"] = counted(lambda: kidnap_eval.main([]))
+    a, b = res["A"]["abs"], res["B"]["abs"]
+    log(f"[kidnap] evals.kidnap at its defaults (800 + 200 scans, 128 "
+        f"candidates): {time.perf_counter() - t0:.1f} s; A {a:.3f} m, B "
+        f"{b:.3f} m abs ATE ({a / max(b, 1e-9):.1f}x), relocalization "
+        f"{res['reloc']}; session 1 {res['session1_s']:.1f} s, session 2 "
+        f"{res['session2_s']:.1f} s; launches {paths['kidnap']} [{card}]")
+    if not (a >= 2 * b and b < 0.3):
+        fail(f"kidnap: A {a:.3f} m, B {b:.3f} m")
+
+    t0 = time.perf_counter()
+    res, paths["recovery"] = counted(lambda: loop_recovery.main([]))
+    log(f"[recovery] evals.loop_recovery at its defaults (1100 + 600 scans, "
+        f"half 100, sigma 0.03): {time.perf_counter() - t0:.1f} s; last "
+        f"{res['window']} scans OFF {res['final_off']:.3f} m, ON "
+        f"{res['final_on']:.3f} m, {res['closures']} closures; launches "
+        f"{paths['recovery']} [{card}]")
+    if not res["final_on"] < 0.5 * res["final_off"]:
+        fail("recovery: the ON arm is not under half the OFF arm's error")
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
@@ -960,29 +1312,34 @@ def main() -> int:
         p = knn_cuda.gated_pairs(kq, kqv, kr, krv, g)
         b, by = bound_ms(knn_bytes(kq.shape[0], kr.shape[0], k), 8.0 * p)
         lib = time_ms(lambda: library_knn(kq, kqv, kr, krv, k), 2, 1)
+        plain = time_ms(lambda: voxel.knn(kq, kqv, kr, krv, k), 3, 1)
         ms = time_ms(lambda: knn_cuda.knn(kq, kqv, kr, krv, k, gate=g), 50)
         bare_k = bare_ms(bare_knn(kq, kqv, kr, krv, k, g), 50)
         log(f"[knn] {name} {kq.shape[0]} x {kr.shape[0]}: ms {ms:.4f}, "
-            f"bare {bare_k:.4f}, bound {b:.6f} ({by}, {p} pairs), library "
-            f"{lib:.2f} [{card}]")
+            f"bare {bare_k:.4f}, bound {b:.6f} ({by}, {p} pairs), plain "
+            f"{plain:.3f}, library {lib:.2f} [{card}]")
     for name in K1_TALL:
         ts, tch, tcv = tall[name][0]
         tn, th = ts.shape
         b, by = bound_ms(ccl_bytes(tn, th), 0.0)
         ms = time_ms(lambda: ccl_cuda.label_propagation(ts, tch, tcv, it),
                      200)
+        plain = time_ms(lambda: ccl_cuda.label_propagation_plain(
+            ts, tch, tcv, it), 5, 1)
         log(f"[ccl] {name} {tn} x {th}: ms {ms:.4f}, bare "
-            f"{bare_ms(bare_ccl(ts, tch, tcv)):.4f}, bound {b:.6f} ({by}) "
-            f"[{card}]")
+            f"{bare_ms(bare_ccl(ts, tch, tcv)):.4f}, bound {b:.6f} ({by}), "
+            f"plain {plain:.3f} [{card}]")
     for name in K2_TALL:
         k2 = tall[name][1]
         pf = for_sensor(name).feat
         pn, ph = k2[0].shape
         b, by = bound_ms(picks_bytes(pn, ph), picks_ops(pn, ph))
         ms = time_ms(lambda: features_cuda.pick_labels(*k2, pf), 200)
+        plain = time_ms(lambda: features_cuda.pick_labels_plain(*k2, pf), 5,
+                        1)
         log(f"[picks] {name} {pn} x {ph}: ms {ms:.4f}, bare "
-            f"{bare_ms(bare_picks(*k2, pf)):.4f}, bound {b:.6f} ({by}) "
-            f"[{card}]")
+            f"{bare_ms(bare_picks(*k2, pf)):.4f}, bound {b:.6f} ({by}), "
+            f"plain {plain:.3f} [{card}]")
     # Device time per launch of each kernel of K1, K2 and K3 (profiler).
     prof = {"ccl vlp16 16 x 1800": lambda: ccl_cuda.label_propagation(
                 seeds, ch, cv, it),
@@ -990,6 +1347,8 @@ def main() -> int:
                 rng, col, grd, cnt, cfg.feat),
             "knn main-path surf 5-NN": lambda: knn_cuda.knn(
                 q, qv, ref, rv, 5, gate=gate),
+            "knn main-path corner 5-NN": lambda: knn_cuda.knn(
+                *real["corner"], 5, gate=gate),
             "knn synthetic 1-NN ungated 8192 x 49152": lambda: knn_cuda.knn(
                 *sets["surf"], 1)}
     for name in K1_TALL:
@@ -1216,6 +1575,10 @@ def main() -> int:
         f"{reloc_launches['knn']} [{card}]")
     if not bool(rdiag.accepted) or not err_gt < 0.3:
         fail(f"reloc: accepted {bool(rdiag.accepted)}, error {err_gt:.4f} m")
+
+    with tempfile.TemporaryDirectory() as work:
+        cli_phases(work, cfg, dev, card, paths)
+    eval_phases(dev, card, paths)
 
     # Every kernel of each path ran in it; the kernels line counts every
     # path's launches.

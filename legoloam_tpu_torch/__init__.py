@@ -9,8 +9,13 @@ the reference).  Same layout and function names:
                   ``knn_cuda``) with their plain PyTorch versions.
   * ``models/`` — odometry, scan-to-map mapping, fusion, the pipeline.
   * ``utils/``  — synthetic worlds, trajectory metrics, state interchange
-                  with the JAX package.
-  * ``csrc/``   — CUDA C++ sources, built with nvcc at first use.
+                  with the JAX package, scan and IMU files, checkpoints,
+                  map and trajectory export, debug dumps, stage timing,
+                  memory accounting.
+  * ``evals/``  — the kidnap and loop-recovery evaluations.
+  * ``cli.py``  — ``python -m legoloam_tpu_torch``.
+  * ``csrc/``   — CUDA C++ sources, built with nvcc at first use, and the
+                  scan loader ``legoio.cpp``, built with g++.
 
 Entry points run on the CUDA device unless the caller passes a CPU device;
 on a CPU tensor every kernel wrapper takes its plain PyTorch version.

@@ -49,9 +49,13 @@ def _shift(a: torch.Tensor, k: int, fill) -> torch.Tensor:
     return torch.cat([pad, a[:, :k]], dim=1)
 
 
-def pick_labels_plain(rng: torch.Tensor, col: torch.Tensor,
-                      ground: torch.Tensor, count: torch.Tensor,
-                      cfg: FeatureConfig) -> torch.Tensor:
+def curvature_marks(rng: torch.Tensor, col: torch.Tensor,
+                    count: torch.Tensor, cfg: FeatureConfig):
+    """The first half of the plain version: (curvature, curv_ok — a full
+    curvature window —, picked — occluded or parallel-beam before any
+    pick —) on the compacted (N, H) grid.  ``pick_labels_plain`` continues
+    from these; the debug capture (``features.extract_features(...,
+    return_debug=True)``) reads them."""
     n, h = rng.shape
     dev = rng.device
     idx = torch.arange(h, dtype=torch.int32, device=dev).expand(n, h)
@@ -82,6 +86,16 @@ def pick_labels_plain(rng: torch.Tensor, col: torch.Tensor,
     parallel = (in_ring & (diff_prev > cfg.parallel_beam_frac * rng)
                 & (diff_next > cfg.parallel_beam_frac * rng))
     picked = (picked | parallel) & in_ring
+    return curvature, curv_ok, picked
+
+
+def pick_labels_plain(rng: torch.Tensor, col: torch.Tensor,
+                      ground: torch.Tensor, count: torch.Tensor,
+                      cfg: FeatureConfig) -> torch.Tensor:
+    curvature, curv_ok, picked = curvature_marks(rng, col, count, cfg)
+    n, h = rng.shape
+    dev = rng.device
+    halfwin = cfg.curvature_halfwin
 
     # extractFeatures (featureAssociation.cpp:680-784): sections with 5-pt
     # guards, s = 5, e = count - 6.
@@ -99,7 +113,7 @@ def pick_labels_plain(rng: torch.Tensor, col: torch.Tensor,
                                sec_ok.reshape(-1, 1))
     pos = torch.arange(h, device=dev)[None, :]
     in_sec = (pos >= sec_lo) & (pos <= sec_hi) & lane_ok   # (n*S, h)
-    gap = torch.abs(col_r - col) > cfg.occlusion_col_gap
+    gap = torch.abs(_shift(col, 1, 10 ** 6) - col) > cfg.occlusion_col_gap
 
     curv_rep = curvature.repeat_interleave(S, dim=0)
 

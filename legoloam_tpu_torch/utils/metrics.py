@@ -1,8 +1,12 @@
-"""Trajectory evaluation (port of ``legoloam_tpu/utils/metrics.py``)."""
+"""Trajectory evaluation, ATE and RPE (port of
+``legoloam_tpu/utils/metrics.py``)."""
 
 from __future__ import annotations
 
 import torch
+
+from ..ops import se3
+from ..ops.se3 import Pose
 
 
 def umeyama_alignment(est: torch.Tensor, ref: torch.Tensor,
@@ -31,3 +35,17 @@ def ate_rmse(est_pos: torch.Tensor, ref_pos: torch.Tensor,
         est_pos = (s * (R @ est_pos.T)).T + t
     err = est_pos - ref_pos
     return torch.sqrt(torch.mean(torch.sum(err * err, dim=-1)))
+
+
+def rpe(est: Pose, ref: Pose, delta: int = 1):
+    """Relative pose error over pose batches (leading dim = time):
+    (translation RMSE, rotation RMSE in radians) of the ``delta``-step
+    motions."""
+    def rel(p: Pose) -> Pose:
+        return se3.relative(Pose(p.R[:-delta], p.t[:-delta]),
+                            Pose(p.R[delta:], p.t[delta:]))
+
+    e = se3.relative(rel(ref), rel(est))
+    t_err = torch.sqrt(torch.mean(torch.sum(e.t * e.t, dim=-1)))
+    w = se3.so3_log(e.R)
+    return t_err, torch.sqrt(torch.mean(torch.sum(w * w, dim=-1)))

@@ -99,6 +99,85 @@ def loop_scene() -> Scene:
                  torch.from_numpy(np.array(cyl, np.float32)))
 
 
+def circuit_scene(half: float = 100.0) -> Scene:
+    """A perimeter circuit larger than the mapping submap radius: a
+    rounded-square lane of half-size ``half`` (100 -> a ~766 m lap) between
+    an outer wall square at half + 12 and an inner one at half - 12, with
+    poles and crates along both lane edges.  Once the vehicle is a side
+    away, the start area is ~200 m out of range, so the return to the start
+    is a real loop-closure event.  Use with ``circuit_trajectory``."""
+    ho, hi = half + 12.0, half - 12.0
+    t = 0.4          # wall thickness
+    boxes = [
+        [-ho, -ho, 0.0, ho, -ho + t, 4.0],
+        [-ho, ho - t, 0.0, ho, ho, 4.0],
+        [-ho, -ho, 0.0, -ho + t, ho, 4.0],
+        [ho - t, -ho, 0.0, ho, ho, 4.0],
+        [-hi, -hi, 0.0, hi, -hi + t, 5.0],
+        [-hi, hi - t, 0.0, hi, hi, 5.0],
+        [-hi, -hi, 0.0, -hi + t, hi, 5.0],
+        [hi - t, -hi, 0.0, hi, hi, 5.0],
+    ]
+    cyl = []
+    rng = np.random.RandomState(11)
+    for side in range(4):
+        n_feat = max(10, int(half / 4))      # ~one every 8 m of side
+        for k in range(n_feat):
+            u = -half + (2.0 * half) * (k + 0.5) / n_feat
+            for r, jitter in ((half - 8.0, 1.5), (half + 8.0, 1.5)):
+                uu = u + jitter * (rng.rand() - 0.5) * 4.0
+                if side == 0:
+                    x, y = uu, -r
+                elif side == 1:
+                    x, y = r, uu
+                elif side == 2:
+                    x, y = -uu, r
+                else:
+                    x, y = -r, -uu
+                if rng.rand() < 0.6:
+                    cyl.append([x, y, 0.18, 4.0 + 2.0 * rng.rand()])
+                else:
+                    w = 0.6 + 1.2 * rng.rand()
+                    d = 0.6 + 1.2 * rng.rand()
+                    boxes.append([x - w / 2, y - d / 2, 0.0,
+                                  x + w / 2, y + d / 2,
+                                  0.8 + 2.0 * rng.rand()])
+    return Scene(torch.from_numpy(np.array(boxes, np.float32)),
+                 torch.from_numpy(np.array(cyl, np.float32)))
+
+
+def circuit_trajectory(n_scans: int, half: float = 100.0,
+                       corner: float = 18.0, step: float = 0.8,
+                       height: float = 0.8, device=None) -> Pose:
+    """Poses along the lane centreline of ``circuit_scene``
+    (counter-clockwise, yaw tangent to the path), ``step`` m a scan; one
+    lap is 4 (2 (half - corner)) + 2 pi corner m (~766 m, ~957 scans, at
+    the defaults)."""
+    L = half - corner                       # straight half-length
+    seg = 2.0 * L
+    arc = 0.5 * np.pi * corner              # quarter-corner length
+    P = 4.0 * (seg + arc)
+    s = (np.arange(n_scans, dtype=np.float64) * step) % P
+    x, y, yaw = np.zeros(n_scans), np.zeros(n_scans), np.zeros(n_scans)
+    for i, si in enumerate(s):
+        q, r = divmod(si, seg + arc)        # side 0..3, offset within it
+        if r < seg:                         # straight
+            px, py, hd = -L + r, -half, 0.0
+        else:                               # corner arc
+            a = (r - seg) / corner          # 0..pi/2
+            px = L + corner * np.sin(a)
+            py = -half + corner * (1.0 - np.cos(a))
+            hd = a
+        for _ in range(int(q)):             # rotate by 90 deg a side
+            px, py = -py, px
+            hd += 0.5 * np.pi
+        x[i], y[i], yaw[i] = px, py, hd
+    t = torch.tensor(np.stack([x, y, np.full_like(x, height)], axis=-1),
+                     dtype=torch.float32, device=device)
+    return Pose(se3.rot_z(torch.tensor(yaw, dtype=torch.float32,
+                                       device=device)), t)
+
+
 def circle_trajectory(n_scans: int, radius: float = 8.0, height: float = 0.8,
                       angular_rate: float = 0.02, device=None) -> Pose:
     """Poses driving a circle (yaw tangent to the path)."""
@@ -107,6 +186,17 @@ def circle_trajectory(n_scans: int, radius: float = 8.0, height: float = 0.8,
     t = torch.stack([radius * torch.sin(th), radius * (1 - torch.cos(th)),
                      torch.full_like(th, height)], dim=-1)
     return Pose(se3.rot_z(th), t)
+
+
+def figure8_trajectory(n_scans: int, radius: float = 10.0,
+                       height: float = 0.8, device=None) -> Pose:
+    """A figure eight through the origin twice (a revisit)."""
+    th = torch.linspace(0.0, 4.0 * np.pi, n_scans, device=device)
+    x = radius * torch.sin(th)
+    y = radius * torch.sin(th) * torch.cos(th)
+    t = torch.stack([x, y, torch.full_like(th, height)], dim=-1)
+    yaw = torch.atan2(torch.gradient(y)[0], torch.gradient(x)[0])
+    return Pose(se3.rot_z(yaw), t)
 
 
 def make_imu(poses: Pose, scan_period: float = 0.1, rate_hz: float = 200.0):
@@ -264,14 +354,22 @@ def raycast_scan(scene: Scene, pose: Pose, sensor: SensorConfig,
                  noise_sigma: float = 0.0,
                  generator: Optional[torch.Generator] = None,
                  next_pose: Optional[Pose] = None, motion: bool = False,
-                 chunk: int = 8192):
+                 spin_warp: float = 0.0, chunk: int = 8192):
     """Simulate one scan from ``pose`` on ``pose.t``'s device.
 
     Returns (points (P, 3) in the sensor frame at each point's firing time,
     valid (P,), ring (P,) int32) in emission order, P = H*N_SCAN.  With
     ``motion`` and ``next_pose`` the sensor interpolates from pose to
     next_pose during the sweep (motion distortion).  Range noise
-    ``noise_sigma`` is drawn from ``generator``."""
+    ``noise_sigma`` is drawn from ``generator``, the port's explicit
+    ``torch.Generator``: a noisy scan is not bit-equal to the JAX package's,
+    whose noise comes from a JAX PRNG key.
+
+    ``spin_warp``: a spindle that does not sweep azimuth linearly in time.
+    Column u in [0, 1] fires at t(u) = u + spin_warp sin(2 pi u) / (2 pi)
+    while the geometry stays azimuth-indexed, so the azimuth-proportional
+    point time the pipeline infers is off by up to ``spin_warp`` of a
+    scan."""
     h, n = sensor.horizon_scan, sensor.n_scan
     dev = pose.t.device
     scene = scene.to(dev)
@@ -280,6 +378,9 @@ def raycast_scan(scene: Scene, pose: Pose, sensor: SensorConfig,
     if motion and next_pose is not None:
         frac = torch.div(torch.arange(p_total, device=dev), n,
                          rounding_mode="floor").to(torch.float32) / h
+        if spin_warp:
+            frac = frac + spin_warp * torch.sin(2.0 * np.pi * frac) \
+                / (2.0 * np.pi)
         R_t = se3.so3_interp(pose.R.expand(p_total, 3, 3),
                              next_pose.R.expand(p_total, 3, 3), frac)
         t_t = pose.t[None] + frac[:, None] * (next_pose.t - pose.t)[None]

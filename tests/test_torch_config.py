@@ -43,13 +43,16 @@ PORT_MODULES = [
     "ops.deskew", "ops.icp", "ops.voxel", "ops.knn_cuda", "ops.smallalg",
     "models.posegraph", "models.loopclosure", "models.relocalize",
     "models.mapping", "models.pipeline", "utils.interop",
-    "utils.synthetic"]
+    "utils.synthetic", "cli", "__main__", "utils.io", "utils.checkpoint",
+    "utils.export", "utils.profiling", "utils.memory", "utils.debugdump",
+    "utils.metrics", "evals.kidnap", "evals.loop_recovery"]
 
 
 def test_port_imports_no_jax():
     """Importing every module of the port (the IMU, ICP, pose-graph, loop
-    closure and relocalization modules among them), and chip_smoke without
-    running it, loads neither jax nor the JAX package."""
+    closure and relocalization modules, the CLI, the utilities and the
+    evaluations among them), and chip_smoke without running it, loads
+    neither jax nor the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import legoloam_tpu_torch as p\n"
