@@ -78,6 +78,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
      least 2x better than A's;
  17. [recovery] evals.loop_recovery at its defaults: the ON arm's error
      over the last 100 scans under half the OFF arm's.
+ 18. [mesh] run_slam_sequence_dist (legoloam_tpu_torch/parallel/) on an
+     NCCL group of one rank over the 96 main-path scans: fused ATE < 0.2 m,
+     within 0.05 m of [main]'s fused positions, equal keyframe counts, and
+     its scans/s beside [main]'s; [mesh memory] memory.dist_state_bytes
+     against init_dist_state's tensors and allocation;
+ 19. [mesh loop] the loop lap of 7 through run_slam_sequence_dist: at
+     least one accepted closure, fused ATE < 0.5 m;
+ 20. [mesh x2] two gloo ranks sharing the card, CUDA tensors:
+     optimize_sharded and scan_to_map_sharded against the single-device
+     solves within tests/test_sharding.py's bounds, and the store's round
+     trip through the shards bitwise;
+ 21. [mesh cli] ``python -m legoloam_tpu_torch --mesh 1`` over the first 100
+     session-1 files with --imu --loop-closure (fused ATE < 0.2 m); its
+     checkpoint resumed by the single-device CLI over the next 20 files
+     (map-frame error < 0.2 m RMS); a --mesh 1 --resume --relocalize
+     session from [cli]'s checkpoint passing [cli resume]'s 0.3 m gate.
   Each path's kernel launches are counted around its run (the CLI runs
   report theirs in profile.txt); the kernels line sums them.
 
@@ -86,6 +102,7 @@ The line before the last is {"kernels": [...]}; the last line is
 """
 
 import dataclasses
+import datetime
 import glob
 import json
 import math
@@ -98,6 +115,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from legoloam_tpu_torch import DEFAULT
 from legoloam_tpu_torch.config import REFERENCE, for_sensor
@@ -110,6 +128,9 @@ from legoloam_tpu_torch.ops import (_native, ccl_cuda, deskew, features,
 from legoloam_tpu_torch.ops.se3 import Pose, transform_points
 from legoloam_tpu_torch.evals import kidnap as kidnap_eval
 from legoloam_tpu_torch.evals import loop_recovery
+from legoloam_tpu_torch.parallel import mapping_dist
+from legoloam_tpu_torch.parallel import mesh as mesh_mod
+from legoloam_tpu_torch.parallel import pipeline_dist, posegraph_dist
 from legoloam_tpu_torch.utils import (checkpoint, export, io, memory,
                                       metrics, synthetic)
 
@@ -144,6 +165,10 @@ CLI_SCANS = 300
 RESUME_SCANS = 40
 RESUME_START = 150
 CLI_TIMEOUT_S = 600
+# [mesh cli]: the first session-1 files through --mesh 1, and the files its
+# checkpoint is resumed over by the single-device CLI.
+MESH_CLI_SCANS = 100
+MESH_RESUME_SCANS = 20
 # The JAX package's debug-dump record names (legoloam_tpu/utils/
 # debugdump.py): the frontend capture, the mapping-state scalars, and one
 # record per odometry diagnostic.
@@ -659,11 +684,8 @@ class CallTimer:
         return out
 
 
-def loop_run(cfg, dev, n_scans=LOOP_SCANS):
-    """``run_slam_sequence`` with loop closure on the revisit lap, with
-    every attempt logged and each attempt's ICP and pose-graph solve timed
-    (``log.icp``, ``log.solve``).  Returns (fused, state, poses, log,
-    seconds)."""
+def lap_scans(cfg, dev, n_scans=LOOP_SCANS):
+    """The revisit lap's scans and trajectory (1.05 m a scan)."""
     scene = synthetic.loop_scene()
     poses = synthetic.circle_trajectory(n_scans + 1, radius=30.0,
                                         angular_rate=0.035, device=dev)
@@ -671,6 +693,15 @@ def loop_run(cfg, dev, n_scans=LOOP_SCANS):
         scene, Pose(poses.R[k], poses.t[k]), cfg.sensor,
         next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
         for k in range(n_scans)]
+    return scans, poses
+
+
+def loop_run(cfg, dev, n_scans=LOOP_SCANS):
+    """``run_slam_sequence`` with loop closure on the revisit lap, with
+    every attempt logged and each attempt's ICP and pose-graph solve timed
+    (``log.icp``, ``log.solve``).  Returns (fused, state, poses, log,
+    seconds)."""
+    scans, poses = lap_scans(cfg, dev, n_scans)
     log = AttemptLog()
     log.icp = CallTimer(icp.icp)
     log.solve = CallTimer(posegraph.optimize)
@@ -1086,6 +1117,7 @@ def cli_phases(work, cfg, dev, card, paths):
     del fresh
     if total != STATE_BYTES or abs(delta - total) > STATE_TENSORS * 512:
         fail(f"memory: {total} B from shapes, {delta} B allocated")
+    return s1, imu_path, os.path.join(out1, "checkpoint.npz"), poses
 
 
 def eval_phases(dev, card, paths):
@@ -1111,6 +1143,294 @@ def eval_phases(dev, card, paths):
         f"{paths['recovery']} [{card}]")
     if not res["final_on"] < 0.5 * res["final_off"]:
         fail("recovery: the ON arm is not under half the OFF arm's error")
+
+
+# ---------------------------------------------------------------------------
+# The distributed paths (legoloam_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+def one_rank_mesh(work, dev):
+    """An NCCL process group of one rank on this card, in this process, and
+    its mesh."""
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(work, "nccl_store"),
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=600))
+    return mesh_mod.make_mesh(1, device=dev)
+
+
+class DistAttemptLog:
+    """Stands in for ``pipeline_dist.close_and_correct_dist``: per attempt,
+    host milliseconds with the card synchronised around it, whether a
+    candidate existed, and the acceptance."""
+
+    def __init__(self):
+        self.fn = pipeline_dist.close_and_correct_dist
+        self.rows = []
+
+    def __call__(self, kf, loops, cfg, pg_cfg, mesh):
+        sync(kf.t.device)
+        t0 = time.perf_counter()
+        out = self.fn(kf, loops, cfg, pg_cfg, mesh)
+        sync(kf.t.device)
+        diag = out[3]
+        self.rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "candidate": int(diag.candidate),
+                          "closed": bool(diag.closed)})
+        return out
+
+
+def timed(fn):
+    """(fn's result, seconds), the card synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def x2_rank(mesh, path_in, path_out):
+    """Rank body of [mesh x2]: the sharded pose graph and scan-to-map, and
+    the store's round trip (to rank 0 and to every rank), on this rank's
+    share of the card; rank 0 saves the results."""
+    inp = torch.load(path_in, weights_only=False)
+    cfg = inp["cfg"]
+    pg = to_device(inp["pg"], mesh.device)
+    s2m = to_device(inp["s2m"], mesh.device)
+    kf = to_device(inp["kf"], mesh.device)
+    R, t = posegraph_dist.optimize_sharded(*pg, cfg.posegraph, mesh)
+    T, it, nc, ns = mapping_dist.scan_to_map_sharded(*s2m, cfg.mapping, mesh)
+    dkf = pipeline_dist.from_keyframe_store(kf, mesh)
+    back0 = pipeline_dist.to_keyframe_store(dkf, mesh)
+    back = pipeline_dist.to_keyframe_store(dkf, mesh, everywhere=True)
+    same = all(torch.equal(a, b) for a, b in zip(back, kf))
+    same_all = mesh.all_reduce(torch.tensor(
+        [float(same)], device=mesh.device))
+    if mesh.rank == 0:
+        same0 = all(torch.equal(a, b) for a, b in zip(back0, kf))
+        torch.save({"pg": (R.cpu(), t.cpu()),
+                    "s2m": (T.R.cpu(), T.t.cpu(), int(it), int(nc), int(ns)),
+                    "roundtrip_rank0": same0,
+                    "roundtrip_everywhere": float(same_all) == mesh.size,
+                    "slots": int(dkf.corner.shape[0]),
+                    "launches": {n: k.launches
+                                 for n, k in _native.KERNELS.items()}},
+                   path_out)
+
+
+def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths):
+    """[mesh], [mesh memory], [mesh loop] on an NCCL group of one rank in
+    this process, and [mesh x2] on two gloo ranks sharing the card.
+    ``main``: (fused, keyframes, scans/s) of the single-device [main]."""
+    mesh = one_rank_mesh(work, dev)
+    try:
+        fused_m, n_kf_m, rate_m = main
+        pipeline_dist.run_slam_sequence_dist(scans[:4], cfg, mesh)   # warm
+        ((fused, st), sec), paths["mesh"] = counted(lambda: timed(
+            lambda: pipeline_dist.run_slam_sequence_dist(scans, cfg, mesh)))
+        gt = ground_truth(poses, N_SCANS)
+        ate = float(metrics.ate_rmse(fused.t, gt))
+        gap = float((fused.t - fused_m.t).norm(dim=1).max())
+        n_kf = int(st.mapping.kf.count)
+        log(f"[mesh] run_slam_sequence_dist at world size 1 (NCCL) over the "
+            f"{N_SCANS} main-path scans: {sec:.3f} s = {N_SCANS / sec:.2f} "
+            f"scans/s ([main] {rate_m:.2f}); fused ATE {ate:.4f} m; largest "
+            f"distance to [main]'s fused positions {gap:.4f} m; {n_kf} "
+            f"keyframes ([main] {n_kf_m}); launches {paths['mesh']} [{card}]")
+        if not (torch.isfinite(fused.t).all() and ate < 0.2):
+            fail(f"mesh: fused ATE {ate:.4f} m")
+        if not (gap < 0.05 and n_kf == n_kf_m):
+            fail(f"mesh: {gap:.4f} m from [main], {n_kf} vs {n_kf_m} "
+                 "keyframes")
+        del st
+
+        # The distributed state's bytes: the budget and the allocation.
+        budget = memory.dist_state_bytes(cfg, 1)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        fresh = pipeline_dist.init_dist_state(cfg, mesh)
+        torch.cuda.synchronize()
+        delta = torch.cuda.memory_allocated() - before
+        kf = fresh.mapping.kf
+        parts = {
+            "kf_clouds_per_shard": memory.tree_bytes(
+                (kf.corner, kf.corner_valid, kf.surf, kf.surf_valid)),
+            "kf_poses_replicated": memory.tree_bytes(
+                (kf.R, kf.t, kf.time, kf.chain_R, kf.chain_t, kf.count,
+                 kf.overflow)),
+            "odom_replicated": memory.tree_bytes(fresh.odom),
+            "loops_replicated": memory.tree_bytes(fresh.loops)}
+        total = memory.tree_bytes(fresh)
+        n_tensors = sum(1 for _ in memory._leaves(fresh))
+        log(f"[mesh memory] dist_state_bytes(DEFAULT, 1) "
+            f"{budget['per_shard_total']} B; init_dist_state's tensors "
+            f"{total} B, allocated {delta} B ({delta - total:+d}); parts "
+            f"equal to the budget's: "
+            f"{all(budget[k] == v for k, v in parts.items())}")
+        del fresh, kf
+        if any(budget[k] != v for k, v in parts.items()) \
+                or abs(delta - total) > n_tensors * 512:
+            fail(f"mesh memory: budget {budget}, tensors {parts}, "
+                 f"allocated {delta} B")
+
+        lap, lap_poses = lap_scans(lcfg, dev, LOOP_SCANS)
+        alog = DistAttemptLog()
+        pipeline_dist.close_and_correct_dist = alog
+        try:
+            ((fused_l, st_l), sec), paths["mesh loop"] = counted(
+                lambda: timed(lambda: pipeline_dist.run_slam_sequence_dist(
+                    lap, lcfg, mesh, times=[0.1 * k
+                                            for k in range(LOOP_SCANS)])))
+        finally:
+            pipeline_dist.close_and_correct_dist = alog.fn
+        ate_l = float(metrics.ate_rmse(fused_l.t,
+                                       ground_truth(lap_poses, LOOP_SCANS)))
+        cands = [r for r in alog.rows if r["candidate"] >= 0]
+        acc = [r for r in alog.rows if r["closed"]]
+        ms = sorted(r["ms"] for r in cands)
+        log(f"[mesh loop] the {LOOP_SCANS}-scan lap through "
+            f"run_slam_sequence_dist at world size 1: {sec:.3f} s = "
+            f"{LOOP_SCANS / sec:.2f} scans/s; {len(alog.rows)} attempts, "
+            f"{len(cands)} with a candidate, {len(acc)} accepted (loop "
+            f"factors {int(st_l.loops.count)}), ms per attempt with a "
+            f"candidate median {ms[len(ms) // 2] if ms else float('nan'):.1f};"
+            f" fused ATE {ate_l:.4f} m; {int(st_l.mapping.kf.count)} "
+            f"keyframes; launches {paths['mesh loop']} [{card}]")
+        if not acc or not (torch.isfinite(fused_l.t).all() and ate_l < 0.5):
+            fail(f"mesh loop: {len(acc)} closures, fused ATE {ate_l:.4f} m")
+        pg = (st_l.mapping.kf.R, st_l.mapping.kf.t, st_l.mapping.kf.count,
+              st_l.mapping.kf.chain_R, st_l.mapping.kf.chain_t, st_l.loops,
+              Pose(st_l.mapping.kf.R[0], st_l.mapping.kf.t[0]))
+        del st_l
+    finally:
+        dist.destroy_process_group()
+    x2_phase(work, cfg, dev, card, pg, scans)
+
+
+def x2_phase(work, cfg, dev, card, pg, scans):
+    """[mesh x2]: two ranks on the one card over gloo with CUDA tensors
+    (NCCL takes one rank per card): the sharded pose graph (the mesh loop's
+    final graph) and scan-to-map (the 6-scan store's last keyframe against
+    its submap, from a guess moved 0.2 m and 1 degree) against the
+    single-device solves, and the 6-scan DEFAULT store's round trip."""
+    _, st = pipeline.run_slam_sequence(scans[:6], cfg, device=dev)
+    kf, cache = st.mapping.kf, st.mapping.cache
+    last = int(kf.count) - 1
+    guess = se3.compose(Pose(kf.R[last], kf.t[last]), se3.se3_exp(
+        torch.tensor([0.0, 0.0, math.radians(1.0), 0.2, -0.1, 0.0],
+                     device=dev)))
+    s2m = (guess, kf.corner[last], kf.corner_valid[last], kf.surf[last],
+           kf.surf_valid[last], cache.c_pts, cache.c_valid, cache.s_pts,
+           cache.s_valid)
+    R1, t1 = posegraph.optimize(*pg, cfg.posegraph)
+    T1, it1, nc1, ns1 = mapping.scan_to_map(*s2m, cfg.mapping)
+    path_in = os.path.join(work, "x2_in.pt")
+    path_out = os.path.join(work, "x2_out.pt")
+    torch.save({"cfg": cfg, "pg": to_device(pg, "cpu"),
+                "s2m": to_device(s2m, "cpu"),
+                "kf": to_device(kf, "cpu")}, path_in)
+    t0 = time.perf_counter()
+    mesh_mod.launch(x2_rank, 2, args=(path_in, path_out), device=dev,
+                    backend="gloo", timeout_s=600)
+    sec = time.perf_counter() - t0
+    out = torch.load(path_out, weights_only=False)
+    R2, t2 = out["pg"]
+    TR, Tt, it, nc, ns = out["s2m"]
+    n = int(pg[2])
+    pg_gap = float((t2[:n] - t1[:n].cpu()).abs().max())
+    pg_rot = float((R2[:n] - R1[:n].cpu()).abs().max())
+    s_gap = float((Tt - T1.t.cpu()).abs().max())
+    s_rot = float((TR - T1.R.cpu()).abs().max())
+    log(f"[mesh x2] two gloo ranks with CUDA tensors on the one card, "
+        f"{sec:.1f} s with start-up: optimize_sharded on the mesh loop's "
+        f"{n}-node graph vs optimize: positions {pg_gap:.3g}, rotations "
+        f"{pg_rot:.3g}; scan_to_map_sharded vs scan_to_map: iterations "
+        f"{it} / {int(it1)}, residuals {nc} + {ns} / {int(nc1)} + "
+        f"{int(ns1)}, position {s_gap:.3g} m, rotation {s_rot:.3g}; the "
+        f"{kf.t.shape[0]}-slot store ({out['slots']} slots a rank) back "
+        f"bitwise on rank 0 {out['roundtrip_rank0']} and on every rank "
+        f"{out['roundtrip_everywhere']}; rank 0's launches "
+        f"{out['launches']} [{card}]")
+    if not (pg_gap < 1e-3 and pg_rot < 1e-3):
+        fail("mesh x2: optimize_sharded outside 1e-3 of optimize")
+    if not (abs(it - int(it1)) <= 1 and abs(nc - int(nc1)) <= 5
+            and abs(ns - int(ns1)) <= 30 and s_gap < 1e-2 and s_rot < 1e-3):
+        fail("mesh x2: scan_to_map_sharded outside the bounds")
+    if not (out["roundtrip_rank0"] and out["roundtrip_everywhere"]):
+        fail("mesh x2: the store's round trip is not bitwise")
+
+
+def mesh_cli_phase(work, cfg, dev, card, s1, imu_path, ckpt, poses, paths):
+    """[mesh cli]: ``python -m legoloam_tpu_torch --mesh 1`` over the first
+    MESH_CLI_SCANS session-1 files with --imu --loop-closure; its checkpoint
+    resumed by the single-device CLI over the next MESH_RESUME_SCANS files;
+    and a ``--mesh 1 --resume --relocalize`` session from [cli]'s
+    single-device checkpoint over the session-2 files."""
+    listed = s1[:MESH_CLI_SCANS + MESH_RESUME_SCANS]
+    out1 = os.path.join(work, "mesh_cli")
+    stdout, _, sec = run_cli(
+        ["--mesh", "1", "--scans", *listed[:MESH_CLI_SCANS], "--imu",
+         imu_path, "--loop-closure", "--out", out1], "mesh cli")
+    missing = [n for n in ("trajectory_fused.txt", "trajectory_mapped.txt",
+                           "global_map.pcd", "checkpoint.npz", "profile.txt")
+               if not os.path.exists(os.path.join(out1, n))]
+    if missing:
+        fail(f"mesh cli: outputs missing: {missing}")
+    fused = tum_positions(os.path.join(out1, "trajectory_fused.txt"))
+    ate = float(metrics.ate_rmse(fused, ground_truth(
+        poses, MESH_CLI_SCANS).cpu())) if fused.shape[0] == MESH_CLI_SCANS \
+        else float("inf")
+    done = [ln for ln in stdout.splitlines()
+            if ln.startswith("[legoloam_tpu_torch] done:")]
+    paths["mesh cli"] = cli_launches(out1)
+
+    # Its checkpoint, resumed without --mesh over the next files.
+    out2 = os.path.join(work, "mesh_ckpt_single")
+    _, _, sec2 = run_cli(
+        ["--scans", *listed[MESH_CLI_SCANS:], "--resume",
+         os.path.join(out1, "checkpoint.npz"), "--out", out2],
+        "single-device resume of the mesh checkpoint")
+    est = tum_positions(os.path.join(out2, "trajectory_fused.txt"))
+    # Scan j of the resumed session is session-1 scan MESH_CLI_SCANS + j:
+    # its sweep ends at pose MESH_CLI_SCANS + j + 1, in session 1's map
+    # frame (where its scan 0 ended, pose 1).
+    j = torch.arange(MESH_RESUME_SCANS) + MESH_CLI_SCANS + 1
+    gt = ((poses.t[j] - poses.t[1]) @ poses.R[1]).cpu()
+    rms2 = float((est - gt).norm(dim=1).square().mean().sqrt()) \
+        if est.shape == gt.shape else float("inf")
+    paths["mesh ckpt resumed"] = cli_launches(out2)
+
+    # A relocalized --mesh 1 session from [cli]'s single-device checkpoint.
+    out3 = os.path.join(work, "mesh_resume")
+    stdout3, _, sec3 = run_cli(
+        ["--mesh", "1", "--scans", os.path.join(work, "s2", "*.lpk"),
+         "--resume", ckpt, "--relocalize", "--out", out3],
+        "mesh cli resume")
+    m = re.search(r"^\[reloc\] accepted=(\w+) candidate=(-?\d+) "
+                  r"fitness=(\S+)$", stdout3, re.M)
+    est3 = tum_positions(os.path.join(out3, "trajectory_fused.txt"))
+    j = torch.arange(1, RESUME_SCANS)
+    gt3 = ((poses.t[RESUME_START + 1 + j] - poses.t[1]) @ poses.R[1]).cpu()
+    rms3 = float((est3[1:] - gt3).norm(dim=1).square().mean().sqrt()) \
+        if est3.shape[0] == RESUME_SCANS else float("inf")
+    paths["mesh cli resume"] = cli_launches(out3)
+    log(f"[mesh cli] --mesh 1 over {MESH_CLI_SCANS} files with --imu "
+        f"--loop-closure: {sec:.1f} s in the subprocess; "
+        f"{done[0] if done else 'no done line'}; fused ATE {ate:.4f} m; "
+        f"launches {paths['mesh cli']}; its checkpoint resumed by the "
+        f"single-device CLI over the next {MESH_RESUME_SCANS} files: "
+        f"{sec2:.1f} s, map-frame error RMS {rms2:.4f} m; --mesh 1 --resume "
+        f"--relocalize from [cli]'s checkpoint over the {RESUME_SCANS} "
+        f"session-2 files: {sec3:.1f} s, "
+        f"{m.group(0) if m else 'no [reloc] line'}, map-frame error over "
+        f"scans 1..{RESUME_SCANS - 1} RMS {rms3:.4f} m; launches "
+        f"{paths['mesh cli resume']} [{card}]")
+    if not (done and ate < 0.2):
+        fail(f"mesh cli: fused ATE {ate:.4f} m")
+    if not rms2 < 0.2:
+        fail(f"mesh cli: the resumed mesh checkpoint's error {rms2:.4f} m")
+    if not m or m.group(1) != "True" or not rms3 < 0.3:
+        fail("mesh cli resume: relocalization not accepted or error "
+             ">= 0.3 m")
 
 
 # ---------------------------------------------------------------------------
@@ -1576,8 +1896,17 @@ def main() -> int:
     if not bool(rdiag.accepted) or not err_gt < 0.3:
         fail(f"reloc: accepted {bool(rdiag.accepted)}, error {err_gt:.4f} m")
 
+    # 18-20. The distributed paths on the card.
     with tempfile.TemporaryDirectory() as work:
-        cli_phases(work, cfg, dev, card, paths)
+        mesh_phases(work, cfg, lcfg, dev, card, scans, poses,
+                    (fused, n_kf, N_SCANS / t_run), paths)
+
+    with tempfile.TemporaryDirectory() as work:
+        s1, imu_path, ckpt, cli_poses = cli_phases(work, cfg, dev, card,
+                                                   paths)
+        # 21. The CLI's --mesh.
+        mesh_cli_phase(work, cfg, dev, card, s1, imu_path, ckpt, cli_poses,
+                       paths)
     eval_phases(dev, card, paths)
 
     # Every kernel of each path ran in it; the kernels line counts every

@@ -4,8 +4,14 @@ reference: ``roslaunch lego_loam run.launch`` + ``rosbag play``).
 
     python -m legoloam_tpu_torch --scans /data/seq/*.lpk --out /tmp/run1
     python -m legoloam_tpu_torch --synthetic 200 --out /tmp/run1
+    python -m legoloam_tpu_torch --mesh 4 --scans ... --out /tmp/run1
 
 It runs on the CUDA device; ``--backend cpu`` is the only way to the CPU.
+``--mesh N`` runs the distributed pipeline (``parallel/``) on N ranks, one
+process each: NCCL with one rank per card, or gloo with ``--backend cpu``.
+Every rank runs the loop; rank 0 prints and writes the outputs.  Checkpoints
+and maps are written from the single-device snapshot of the state, so a
+checkpoint resumes with or without ``--mesh``, at any N.
 
 Outputs (the reference's /tmp PCD dumps and more, mapOptmization.cpp:730-755):
     out/trajectory_fused.txt   TUM-format fused trajectory (10 Hz equivalent)
@@ -26,6 +32,9 @@ import os
 import sys
 
 NAME = "legoloam_tpu_torch"
+# A rank of a --mesh run that waits longer than this in a collective fails
+# the run (rank 0 alone relocalizes and writes checkpoints meanwhile).
+MESH_TIMEOUT_S = 1800.0
 
 
 def small_preset(cfg):
@@ -101,34 +110,65 @@ def main(argv=None):
                          "scans")
     ap.add_argument("--debug-every", type=int, default=50)
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="the distributed pipeline over an N-device mesh: "
-                         "not ported yet (ROADMAP P14); 0 = single-device")
+                    help="the distributed pipeline on N ranks (one card "
+                         "each; gloo ranks with --backend cpu); "
+                         "0 = single-device")
     ap.add_argument("--preset", default="default",
                     choices=["default", "small"],
                     help="'small' shrinks map capacities (CPU debugging)")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        ap.error(f"--mesh {args.mesh}: the distributed pipeline is not "
-                 "ported to PyTorch yet (ROADMAP P14); run without --mesh")
     if args.relocalize and not args.resume:
         ap.error("--relocalize requires --resume (a restored keyframe map)")
+    if not args.synthetic and not scan_paths(args.scans):
+        ap.error("no scans given (use --scans or --synthetic N)")
+    if args.mesh < 0:
+        ap.error(f"--mesh {args.mesh}: give a number of ranks")
+    device = "cpu" if args.backend == "cpu" else None
+    if args.mesh:
+        from .parallel import mesh as mesh_mod
+        try:
+            mesh_mod.check_devices(args.mesh, device)
+        except RuntimeError as e:
+            ap.error(str(e))
+        mesh_mod.launch(_mesh_rank, args.mesh, args=(args,), device=device,
+                        timeout_s=MESH_TIMEOUT_S)
+        return 0
 
+    from .device import resolve_device
+    try:
+        dev = resolve_device(args.backend)
+    except RuntimeError as e:
+        ap.error(str(e))
+    return run(args, dev)
+
+
+def scan_paths(patterns):
+    """The scan files of ``--scans``, globs expanded in sorted order."""
+    paths = []
+    for p in (patterns or []):
+        paths.extend(sorted(glob.glob(p)) if any(c in p for c in "*?")
+                     else [p])
+    return paths
+
+
+def _mesh_rank(mesh, args):
+    run(args, mesh.device, mesh)
+
+
+def run(args, dev, mesh=None):
+    """The replay loop on ``dev``; with ``mesh``, this rank's part of the
+    distributed run (every rank calls it; rank 0 writes)."""
     import torch
 
     from .config import DEFAULT, SENSORS
-    from .device import resolve_device
     from .models import pipeline
-    from .models import relocalize as reloc_mod
     from .ops import _native, deskew
     from .ops.se3 import Pose
     from .utils import checkpoint, export, io as lio, profiling, synthetic
     from .utils.debugdump import DebugDumper
 
-    try:
-        dev = resolve_device(args.backend)
-    except RuntimeError as e:
-        ap.error(str(e))
+    lead = mesh is None or mesh.rank == 0
     _native.reset_counts()      # profile.txt reports this run's launches
 
     cfg = DEFAULT.replace(sensor=SENSORS[args.sensor])
@@ -137,7 +177,8 @@ def main(argv=None):
     if args.loop_closure:
         cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, enabled=True))
 
-    os.makedirs(args.out, exist_ok=True)
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
     timer = profiling.StageTimer(dev)
 
     # --- scan source ---
@@ -158,12 +199,7 @@ def main(argv=None):
                         motion=k + 1 < n)
                 yield scan
     else:
-        paths = []
-        for p in (args.scans or []):
-            paths.extend(sorted(glob.glob(p)) if any(c in p for c in "*?")
-                         else [p])
-        if not paths:
-            ap.error("no scans given (use --scans or --synthetic N)")
+        paths = scan_paths(args.scans)
         loader = lio.ScanLoader(
             paths, point_cap=cfg.sensor.n_points, n_scan=cfg.sensor.n_scan,
             ang_bottom_deg=cfg.sensor.ang_bottom_deg,
@@ -173,8 +209,12 @@ def main(argv=None):
             return upload(loader, dev)
 
     # --- run ---
-    state = pipeline.init_slam_state(cfg, dev)
+    backend = pipeline.SINGLE
+    if mesh is not None:
+        from .parallel import pipeline_dist
+        backend = pipeline_dist.MeshBackend(mesh)
     if args.resume:
+        state = pipeline.init_slam_state(cfg, dev)
         fresh_odom = state.odom
         state = checkpoint.load_state(args.resume, state)
         if args.relocalize:
@@ -182,6 +222,11 @@ def main(argv=None):
             # and velocity are the last session's, so odometry starts anew
             # (bootstrapped on scan 1) and only the map is resumed.
             state = state._replace(odom=fresh_odom)
+        # On a mesh every rank loads the checkpoint and keeps its slots.
+        state = backend.from_single(state)
+    else:
+        state = backend.init_state(cfg, dev)
+
     imu_seq = lio.ImuSequence.from_file(args.imu) if args.imu else None
     dumper = DebugDumper(args.debug_dump, every=args.debug_every)
 
@@ -201,34 +246,42 @@ def main(argv=None):
             run_mapping = not args.odometry_only \
                 and (k % cfg.mapping_every == 0) \
                 and not (k == 0 and args.relocalize)
-            state, out = pipeline.slam_scan_step(
-                state, *scan, cfg, t, run_mapping=run_mapping,
-                run_loop=sched.due(t), imu_integral=integ,
-                bootstrap=(k == 1 and (args.relocalize or not args.resume)))
+            step = dict(run_mapping=run_mapping, run_loop=sched.due(t),
+                        imu_integral=integ,
+                        bootstrap=(k == 1
+                                   and (args.relocalize or not args.resume)))
+            state, out = pipeline.slam_scan_step(state, *scan, cfg, t,
+                                                 backend=backend, **step)
         if k == 0 and args.relocalize:
-            state, rdiag = reloc_mod.relocalize_slam_state(state, cfg)
-            print(f"[reloc] accepted={bool(rdiag.accepted)} "
-                  f"candidate={int(rdiag.candidate)} "
-                  f"fitness={float(rdiag.fitness):.4f}")
+            state, rdiag = backend.relocalize(state, cfg)
+            if lead:
+                print(f"[reloc] accepted={bool(rdiag.accepted)} "
+                      f"candidate={int(rdiag.candidate)} "
+                      f"fitness={float(rdiag.fitness):.4f}")
             out = out._replace(fused_pose=state.mapping.t_aft)
         fused_R.append(out.fused_pose.R)
         fused_t.append(out.fused_pose.t)
         times.append(t)
-        if dumper.due(k):
+        if lead and dumper.due(k):
             with timer.stage("debug_dump"):
                 dumper.maybe_dump(k, scan, cfg, state=state, diag=out.diag)
         if args.checkpoint_every and (k + 1) % args.checkpoint_every == 0:
             with timer.stage("checkpoint"):
-                checkpoint.save_state(
-                    os.path.join(args.out, "checkpoint.npz"), state)
+                snap = backend.snapshot(state, cfg)
+                if lead:
+                    checkpoint.save_state(
+                        os.path.join(args.out, "checkpoint.npz"), snap)
+                del snap
         if args.map_every and (k + 1) % args.map_every == 0:
             with timer.stage("map_export"):
-                kf_now = state.mapping.kf
-                if int(kf_now.count):
+                snap = backend.snapshot(state, cfg)
+                kf_now = snap.mapping.kf if lead else None
+                del snap
+                if lead and int(kf_now.count):
                     pts, val = export.assemble_global_map(kf_now)
                     export.write_pcd(
                         os.path.join(args.out, "global_map.pcd"), pts, val)
-        if (k + 1) % 100 == 0:
+        if lead and (k + 1) % 100 == 0:
             print(f"[{NAME}] {k + 1} scans, "
                   f"{int(state.mapping.kf.count)} keyframes", file=sys.stderr)
             # No silent caps: warn the moment any fixed cap drops data, and
@@ -248,11 +301,15 @@ def main(argv=None):
                       f"{int(state.mapping.kf.overflow)} times — raise "
                       f"max_keyframes or decimate more aggressively",
                       file=sys.stderr)
-            if int(state.mapping.cache.voxel_overflow):
+        if (k + 1) % 100 == 0:
+            # The mesh path, as the JAX package's, keeps no submap cache
+            # and never decimates.
+            cache = getattr(state.mapping, "cache", None)
+            if cache is not None and int(cache.voxel_overflow):
                 print(f"warning: submap voxel caps dropped "
-                      f"{int(state.mapping.cache.voxel_overflow)} voxels "
+                      f"{int(cache.voxel_overflow)} voxels "
                       f"— raise submap_*_cap", file=sys.stderr)
-            state, did = pipeline.maybe_decimate(state, cfg, margin=48)
+            state, did = backend.maybe_decimate(state, cfg, margin=48)
             if did:
                 print(f"[{NAME}] keyframe store decimated to "
                       f"{int(state.mapping.kf.count)} "
@@ -261,6 +318,9 @@ def main(argv=None):
         loader.close()
 
     # --- outputs ---
+    state = backend.snapshot(state, cfg)
+    if not lead:
+        return 0
     export.write_trajectory_tum(
         os.path.join(args.out, "trajectory_fused.txt"), times,
         Pose(torch.stack(fused_R), torch.stack(fused_t)))

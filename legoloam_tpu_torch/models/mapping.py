@@ -14,7 +14,7 @@ Python control flow on values read back from the device.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -93,8 +93,20 @@ def init_state(cfg: MappingConfig, device=None) -> MapState:
         surf_valid=torch.zeros((m, cfg.scan_surf_cap), **b),
         count=_scalar(0, torch.int32, device),
         overflow=_scalar(0, torch.int32, device))
+    return MapState(kf=kf, cache=init_cache(cfg, device),
+                    t_bef=Pose.identity(device=device),
+                    t_aft=Pose.identity(device=device),
+                    ground_ref=_scalar(0.0, torch.float32, device),
+                    ground_ref_ok=_scalar(False, torch.bool, device),
+                    initialized=_scalar(False, torch.bool, device))
+
+
+def init_cache(cfg: MappingConfig, device=None) -> SubmapCache:
+    """An empty submap cache, marked stale."""
+    f = dict(device=device)
+    b = dict(dtype=torch.bool, device=device)
     cc, sc = cfg.submap_corner_cap, cfg.submap_surf_cap
-    cache = SubmapCache(
+    return SubmapCache(
         c_pts=torch.zeros((cc, 3), **f), c_cnt=torch.zeros((cc,), **f),
         c_valid=torch.zeros((cc,), **b),
         s_pts=torch.zeros((sc, 3), **f), s_cnt=torch.zeros((sc,), **f),
@@ -105,11 +117,6 @@ def init_state(cfg: MappingConfig, device=None) -> MapState:
         prune_r=_scalar(cfg.search_radius + cfg.submap_rebuild_dist,
                         torch.float32, device),
         voxel_overflow=_scalar(0, torch.int32, device))
-    return MapState(kf=kf, cache=cache, t_bef=Pose.identity(device=device),
-                    t_aft=Pose.identity(device=device),
-                    ground_ref=_scalar(0.0, torch.float32, device),
-                    ground_ref_ok=_scalar(False, torch.bool, device),
-                    initialized=_scalar(False, torch.bool, device))
 
 
 # ---------------------------------------------------------------------------
@@ -311,16 +318,33 @@ def _surf_residuals_from(p_world, n, off, gate, cfg: MappingConfig):
     return n * w[:, None], pd2 * w, ok
 
 
+def _host(x: torch.Tensor, what: str = ""):
+    """The host value (``bool``, ``int`` or ``float``) of a 0-d tensor that
+    a decision reads; ``what`` names it (``parallel.mesh.Mesh.read`` checks
+    it across ranks)."""
+    return x.item()
+
+
 def scan_to_map(guess: Pose, corner, corner_valid, surf, surf_valid,
-                sub_c, sub_cv, sub_s, sub_sv, cfg: MappingConfig):
+                sub_c, sub_cv, sub_s, sub_sv, cfg: MappingConfig,
+                reduce_fn=None, read_fn=None):
     """scan2MapOptimization (mapOptmization.cpp:1329-1350): Gauss-Newton
     with 5-NN fits refreshed every ``corr_refresh_every`` iterations,
     rotation linearised about the current pose position, an odometry prior
     anchored at the guess, and the eigenvalue-100 degeneracy clamp.
-    Returns (pose, iterations, n corner residuals, n surf residuals)."""
+    Returns (pose, iterations, n corner residuals, n surf residuals).
+
+    ``reduce_fn``: the sum over ranks of a tensor, for the scan rows
+    sharded over a mesh with the submap replicated
+    (``parallel.mapping_dist.scan_to_map_sharded``).  The residual counts
+    are reduced before the residual gate and the normal equations before
+    the prior is added, so every rank takes the same decisions and solves
+    the same system.  ``read_fn``: the host read of each decision (the map
+    gate, the residual gate, the convergence test), ``Mesh.read`` there."""
     dev = corner.device
-    map_ok = bool((torch.sum(sub_cv) >= cfg.min_corner_map)
-                  & (torch.sum(sub_sv) >= cfg.min_surf_map))
+    read = read_fn or _host
+    map_ok = read((torch.sum(sub_cv) >= cfg.min_corner_map)
+                  & (torch.sum(sub_sv) >= cfg.min_surf_map), "submap gate")
     if cfg.prior_trans_std > 0 and cfg.prior_rot_std_deg > 0:
         w_rot = 1.0 / math.radians(cfg.prior_rot_std_deg) ** 2
         w_trans = 1.0 / cfg.prior_trans_std ** 2
@@ -354,12 +378,17 @@ def scan_to_map(guess: Pose, corner, corner_valid, surf, surf_valid,
         res_all = torch.cat([cres, sres], dim=0)
         ok_all = torch.cat([c_ok, s_ok], dim=0)
         n_c, n_s = torch.sum(c_ok), torch.sum(s_ok)
-        enough = bool(n_c + n_s >= cfg.min_residuals)
+        if reduce_fn is not None:
+            n_c, n_s = reduce_fn(torch.stack([n_c, n_s]))
+        enough = read(n_c + n_s >= cfg.min_residuals, "residual gate")
         lin_center = T.t
         J = torch.cat([torch.linalg.cross(p_all - lin_center[None, :],
                                           dir_all), dir_all], dim=1)
         AtA, AtB = lm.assemble_normal_equations(J, res_all, ok_all & enough,
                                                 1.0)
+        if reduce_fn is not None:
+            sums = reduce_fn(torch.cat([AtA.reshape(-1), AtB]))
+            AtA, AtB = sums[:36].reshape(6, 6), sums[36:]
         AtA = AtA + torch.diag(prior_w)
         AtB = AtB - prior_w * xi_acc
         delta, deg = lm.solve_assembled(AtA, AtB, deg, i == 0,
@@ -369,8 +398,10 @@ def scan_to_map(guess: Pose, corner, corner_valid, surf, surf_valid,
             break
         T = se3.retract_about(T, delta, lin_center)
         xi_acc = xi_acc + delta
-        rot_deg = math.degrees(float(torch.linalg.norm(delta[:3])))
-        t_cm = float(torch.linalg.norm(delta[3:])) * 100.0
+        rot_deg = math.degrees(read(torch.linalg.norm(delta[:3]),
+                                    "LM rotation step"))
+        t_cm = read(torch.linalg.norm(delta[3:]), "LM translation step") \
+            * 100.0
         if rot_deg < cfg.conv_rot_deg and t_cm < cfg.conv_trans_cm:
             break
     return T, i, n_c, n_s
@@ -430,14 +461,53 @@ def _trust_region(guess: Pose, T: Pose, cfg: MappingConfig) -> Pose:
 # Full mapping step
 # ---------------------------------------------------------------------------
 
+class MapHooks(NamedTuple):
+    """The parts of ``mapping_step`` that run differently over a mesh
+    (``parallel.pipeline_dist.mesh_map_hooks``); ``LOCAL`` is the single
+    device's.
+
+    submap(state, center, cfg) -> (state, (corner, valid), (surf, valid),
+        voxel overflow): the submap the LM matches against;
+    scan_to_map: ``scan_to_map``'s arguments and result;
+    read(x, what): the host value of a 0-d tensor a decision reads;
+    write_clouds(kf, k, corner, valid, surf, valid): keyframe k's clouds
+        into the store, in place."""
+
+    submap: Callable
+    scan_to_map: Callable
+    read: Callable
+    write_clouds: Callable
+
+
+def _cached_submap(state: MapState, center, cfg: MappingConfig):
+    """The single device's submap: the incrementally folded cache."""
+    cache = update_submap_cache(state.cache, state.kf, center, cfg)
+    return (state._replace(cache=cache), (cache.c_pts, cache.c_valid),
+            (cache.s_pts, cache.s_valid), cache.voxel_overflow)
+
+
+def _write_clouds(kf: KeyframeStore, k: int, c_pts, c_ok, s_pts, s_ok):
+    kf.corner[k] = c_pts
+    kf.corner_valid[k] = c_ok
+    kf.surf[k] = s_pts
+    kf.surf_valid[k] = s_ok
+
+
+LOCAL = MapHooks(submap=_cached_submap, scan_to_map=scan_to_map, read=_host,
+                 write_clouds=_write_clouds)
+
+
 def mapping_step(state: MapState, corner_cloud: FeatureCloud,
                  surf_cloud: FeatureCloud, outlier_cloud: FeatureCloud,
                  odom_pose: Pose, scan_time, cfg: MappingConfig,
-                 imu_rpy=None, ground_cloud: FeatureCloud | None = None):
+                 imu_rpy=None, ground_cloud: FeatureCloud | None = None,
+                 hooks: MapHooks = LOCAL):
     """One mapping update (mapOptmization.cpp:1487-1522).  The keyframe
     store of ``state`` is written in place; returns (new state, mapped pose,
     diag).  ``imu_rpy``: the IMU attitude at scan end, toward which roll and
-    pitch are blended by ``cfg.imu_blend``."""
+    pitch are blended by ``cfg.imu_blend``.  ``hooks``: where the submap,
+    the LM and the keyframe's clouds go (a mesh's, with a
+    ``pipeline_dist.DistMapState``)."""
     dev = odom_pose.t.device
     guess = se3.where_pose(
         state.initialized,
@@ -454,10 +524,10 @@ def mapping_step(state: MapState, corner_cloud: FeatureCloud,
     s_pts, s_ok = voxel_downsample(surf_all, surf_all_ok, cfg.surf_leaf,
                                    cfg.scan_surf_cap, origin=zero3)
 
-    cache = update_submap_cache(state.cache, state.kf, guess.t, cfg)
-    T_lm, iters, n_c, n_s = scan_to_map(
-        guess, c_pts, c_ok, s_pts, s_ok, cache.c_pts, cache.c_valid,
-        cache.s_pts, cache.s_valid, cfg)
+    state, (sub_c, sub_cv), (sub_s, sub_sv), sub_overflow = hooks.submap(
+        state, guess.t, cfg)
+    T_lm, iters, n_c, n_s = hooks.scan_to_map(
+        guess, c_pts, c_ok, s_pts, s_ok, sub_c, sub_cv, sub_s, sub_sv, cfg)
     T = _trust_region(guess, T_lm, cfg) if cfg.max_step_trans > 0 else T_lm
     T = se3.where_pose(state.kf.count >= cfg.min_lm_keyframes, T, guess)
 
@@ -478,11 +548,12 @@ def mapping_step(state: MapState, corner_cloud: FeatureCloud,
     # saveKeyFramesAndFactor: a keyframe when moved >= keyframe_dist (the
     # first frame always).
     kf = state.kf
-    count = int(kf.count)
+    count = hooks.read(kf.count, "keyframe count")
     last = max(count - 1, 0)
-    moved = bool(torch.linalg.norm(T.t - kf.t[last]) >= cfg.keyframe_dist)
+    moved = hooks.read(torch.linalg.norm(T.t - kf.t[last])
+                       >= cfg.keyframe_dist, "keyframe gate")
     has_room = count < kf.t.shape[0]
-    initialized = bool(state.initialized)
+    initialized = hooks.read(state.initialized, "initialized")
     is_new = (not initialized) or (moved and has_room)
     overflow_now = initialized and moved and not has_room
     if is_new:
@@ -492,22 +563,19 @@ def mapping_step(state: MapState, corner_cloud: FeatureCloud,
         kf.time[count] = float(scan_time)
         kf.chain_R[count] = meas.R
         kf.chain_t[count] = meas.t
-        kf.corner[count] = c_pts
-        kf.corner_valid[count] = c_ok
-        kf.surf[count] = s_pts
-        kf.surf_valid[count] = s_ok
+        hooks.write_clouds(kf, count, c_pts, c_ok, s_pts, s_ok)
         kf = kf._replace(count=kf.count + 1)
     if overflow_now:
         kf = kf._replace(overflow=kf.overflow + 1)
 
-    new_state = MapState(kf=kf, cache=cache, t_bef=odom_pose, t_aft=T,
-                         ground_ref=ground_ref, ground_ref_ok=ground_ref_ok,
-                         initialized=_scalar(True, torch.bool, dev))
+    new_state = state._replace(
+        kf=kf, t_bef=odom_pose, t_aft=T, ground_ref=ground_ref,
+        ground_ref_ok=ground_ref_ok,
+        initialized=_scalar(True, torch.bool, dev))
     diag = MappingDiag(
         n_corner_res=n_c, n_surf_res=n_s, iters=iters, new_keyframe=is_new,
-        n_submap_corner=torch.sum(cache.c_valid),
-        n_submap_surf=torch.sum(cache.s_valid), kf_overflow=overflow_now,
-        submap_overflow=cache.voxel_overflow)
+        n_submap_corner=torch.sum(sub_cv), n_submap_surf=torch.sum(sub_sv),
+        kf_overflow=overflow_now, submap_overflow=sub_overflow)
     return new_state, T, diag
 
 

@@ -4,6 +4,11 @@ integral is given) -> two-step LM odometry -> every ``mapping_every`` scans
 the scan-to-map step -> loop closure when due -> fusion, plus the
 keyframe-store saturation guard and the block drivers.
 
+The mapping half of a step (the scan-to-map step, loop closure, the
+saturation guard) runs through a ``Backend``: the single device's by
+default, or a mesh's (``parallel.pipeline_dist.MeshBackend``), so the
+drivers below are also the distributed drivers.
+
 The JAX package's block drivers fuse B scans into one XLA program to save
 dispatches; here they are loops over the streaming step, so their outputs
 equal the streaming driver's and their API is kept for parity.
@@ -27,6 +32,7 @@ from . import loopclosure as loop_mod
 from . import mapping as mapping_mod
 from . import odometry as odom
 from . import posegraph as pg_mod
+from . import relocalize as reloc_mod
 from .odometry import OdometryDiag, OdometryState
 
 
@@ -140,11 +146,58 @@ def _on(tree, dev):
     return torch.as_tensor(tree, device=dev)
 
 
+class Backend:
+    """Where the mapping half of a SLAM step runs: on one device (this
+    class) or over the ranks of a mesh
+    (``parallel.pipeline_dist.MeshBackend``).  The frontend, odometry and
+    fusion are the same for both."""
+
+    map_hooks = mapping_mod.LOCAL
+
+    def init_state(self, cfg: PipelineConfig, device=None):
+        """The empty state."""
+        return init_slam_state(cfg, device)
+
+    def from_single(self, state: SlamState):
+        """A single-device state (e.g. a loaded checkpoint) as this
+        backend's."""
+        return state
+
+    def snapshot(self, state, cfg: PipelineConfig):
+        """The single-device state that checkpoints and maps are written
+        from; None where this process writes nothing."""
+        return state
+
+    def close_loop(self, map_state, loops, cfg: PipelineConfig):
+        """One loop-closure attempt: (map state, loop factors)."""
+        kf, loops, corrected, ldiag = loop_mod.close_and_correct(
+            map_state.kf, loops, cfg.loop, cfg.posegraph)
+        if bool(ldiag.closed):
+            # correctPoses: adopt the corrected store and re-anchor the
+            # mapping correction at the corrected latest pose
+            # (mapOptmization.cpp:1429-1478); the submap cache no longer
+            # matches the moved keyframes.
+            map_state = map_state._replace(
+                kf=kf, t_aft=corrected, cache=map_state.cache._replace(
+                    stale=torch.ones_like(map_state.cache.stale)))
+        return map_state, loops
+
+    def maybe_decimate(self, state, cfg: PipelineConfig, margin: int = 16):
+        return maybe_decimate(state, cfg, margin)
+
+    def relocalize(self, state, cfg: PipelineConfig):
+        """``relocalize.relocalize_slam_state``: (state, diag)."""
+        return reloc_mod.relocalize_slam_state(state, cfg)
+
+
+SINGLE = Backend()
+
+
 def slam_scan_step(state: SlamState, points, valid, ring,
                    cfg: PipelineConfig, scan_time, run_mapping: bool,
                    run_loop: bool = False,
                    imu_integral: Optional[deskew_ops.ImuIntegral] = None,
-                   bootstrap: bool = False):
+                   bootstrap: bool = False, backend: Backend = SINGLE):
     """One full SLAM step on the state's device.  ``bootstrap`` (pass it on
     scan index 1): re-seed and re-solve the odometry twice before the final
     solve, as the JAX package does.  With ``imu_integral``: de-skew, the
@@ -152,7 +205,8 @@ def slam_scan_step(state: SlamState, points, valid, ring,
     constant-velocity prior) and blend, and the mapping attitude blend.
     ``run_loop`` with ``cfg.loop.enabled``: one loop-closure attempt after
     mapping.  The keyframe store is updated in place, except that a closed
-    loop replaces its poses."""
+    loop replaces its poses.  ``backend``: where mapping and loop closure
+    run (a mesh's, with its state)."""
     dev = state.odom.xi.device
     points, valid, ring = (torch.as_tensor(a, device=dev)
                            for a in (points, valid, ring))
@@ -181,20 +235,12 @@ def slam_scan_step(state: SlamState, points, valid, ring,
         map_state, _, _ = mapping_mod.mapping_step(
             map_state, odom_state.last_corner, odom_state.last_surf,
             odom_state.last_outlier, pose, scan_time, cfg.mapping,
-            imu_rpy=imu_rpy_end, ground_cloud=odom_state.last_flat)
+            imu_rpy=imu_rpy_end, ground_cloud=odom_state.last_flat,
+            hooks=backend.map_hooks)
     if run_loop and cfg.loop.enabled:
-        kf, loops, corrected, ldiag = loop_mod.close_and_correct(
-            map_state.kf, loops, cfg.loop, cfg.posegraph)
-        if bool(ldiag.closed):
-            # correctPoses: adopt the corrected store and re-anchor the
-            # mapping correction at the corrected latest pose
-            # (mapOptmization.cpp:1429-1478); the submap cache no longer
-            # matches the moved keyframes.
-            map_state = map_state._replace(
-                kf=kf, t_aft=corrected, cache=map_state.cache._replace(
-                    stale=torch.ones_like(map_state.cache.stale)))
+        map_state, loops = backend.close_loop(map_state, loops, cfg)
     fused = fusion_mod.fuse(pose, map_state.t_bef, map_state.t_aft)
-    return (SlamState(odom=odom_state, mapping=map_state, loops=loops),
+    return (state._replace(odom=odom_state, mapping=map_state, loops=loops),
             SlamOutput(odom_pose=pose, mapped_pose=map_state.t_aft,
                        fused_pose=fused, diag=diag))
 
@@ -202,7 +248,7 @@ def slam_scan_step(state: SlamState, points, valid, ring,
 def slam_scan_block(state: SlamState, points, valid, ring,
                     cfg: PipelineConfig, scan_times, run_loop: bool = False,
                     imu_integrals: Optional[deskew_ops.ImuIntegral] = None,
-                    bootstrap: bool = False):
+                    bootstrap: bool = False, backend: Backend = SINGLE):
     """B consecutive scans ((B, P, 3), (B, P), (B, P), times (B,)): the
     scan-to-map step (and, with ``run_loop``, a loop-closure attempt) on the
     block's first scan, odometry and fusion on every scan — B calls of
@@ -223,7 +269,8 @@ def slam_scan_block(state: SlamState, points, valid, ring,
         state, out = slam_scan_step(
             state, points[j], valid[j], ring[j], cfg, scan_times[j],
             run_mapping=(j == 0), run_loop=(run_loop and j == 0),
-            imu_integral=integ, bootstrap=(bootstrap and j == 1))
+            imu_integral=integ, bootstrap=(bootstrap and j == 1),
+            backend=backend)
         outs.append(out)
     return state, _stack(outs)
 
@@ -266,10 +313,14 @@ class LoopScheduler:
         return False
 
 
-def run_slam_sequence(scans, cfg: PipelineConfig, times=None, device=None):
+def run_slam_sequence(scans, cfg: PipelineConfig, times=None, device=None,
+                      imu_integrals=None, backend: Backend = SINGLE):
     """Host loop of the full pipeline over ``(points, valid, ring)``
-    triples; returns (fused trajectory Pose (K, ...), final state)."""
-    state = init_slam_state(cfg, device)
+    triples: the scan-1 bootstrap, per-scan IMU integrals (a sequence, one
+    per scan, or None), the loop-closure cadence on data time and the
+    saturation guard every 32 scans.  Returns (fused trajectory Pose
+    (K, ...), final state)."""
+    state = backend.init_state(cfg, device)
     sched = LoopScheduler(cfg)
     fused_R, fused_t = [], []
     for k, (pts, valid, ring) in enumerate(scans):
@@ -277,11 +328,13 @@ def run_slam_sequence(scans, cfg: PipelineConfig, times=None, device=None):
         state, out = slam_scan_step(
             state, pts, valid, ring, cfg, t,
             run_mapping=(k % cfg.mapping_every == 0),
-            run_loop=sched.due(t), bootstrap=(k == 1))
+            run_loop=sched.due(t),
+            imu_integral=None if imu_integrals is None else imu_integrals[k],
+            bootstrap=(k == 1), backend=backend)
         fused_R.append(out.fused_pose.R)
         fused_t.append(out.fused_pose.t)
         if k % 32 == 31:
-            state, _ = maybe_decimate(state, cfg)
+            state, _ = backend.maybe_decimate(state, cfg)
     return Pose(torch.stack(fused_R), torch.stack(fused_t)), state
 
 

@@ -77,10 +77,12 @@ class DebugDumper:
             rec["kf_t"] = to_numpy(kf.t[:max(n_kf, 1)])
             rec["kf_count"] = n_kf
             rec["kf_overflow"] = int(kf.overflow)
-            cache = state.mapping.cache
-            rec["submap_corner_occ"] = int(cache.c_valid.sum())
-            rec["submap_surf_occ"] = int(cache.s_valid.sum())
-            rec["submap_origin"] = to_numpy(cache.origin)
+            # A mesh run's state keeps no submap cache.
+            cache = getattr(state.mapping, "cache", None)
+            if cache is not None:
+                rec["submap_corner_occ"] = int(cache.c_valid.sum())
+                rec["submap_surf_occ"] = int(cache.s_valid.sum())
+                rec["submap_origin"] = to_numpy(cache.origin)
             rec["loop_count"] = int(state.loops.count)
             rec["loop_dropped"] = int(state.loops.dropped)
         if diag is not None:

@@ -11,7 +11,6 @@ counts (``torch.cuda.memory_stats``).
 
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
@@ -47,24 +46,24 @@ def slam_state_bytes(cfg) -> Dict[str, int]:
 
 
 def dist_state_bytes(cfg, n_devices: int) -> Dict[str, int]:
-    """PER-SHARD byte budget of the JAX package's distributed state on an
-    ``n_devices`` mesh (``legoloam_tpu/parallel/pipeline_dist.py``):
-    keyframe clouds sharded on the keyframe axis, everything else (poses,
-    chain, odometry state, loop factors) replicated.  The port's
-    distributed path is not written yet; this is the budget it inherits."""
+    """Per-rank byte budget of the distributed state on ``n_devices`` ranks
+    (``parallel.pipeline_dist.init_dist_state``): the keyframe clouds of the
+    rank's ``ceil(M / n)`` cyclic slots, everything else (poses, chain,
+    odometry state, loop factors) replicated.  Where ``n`` divides ``M``
+    this is the JAX package's per-shard budget."""
     from ..models import odometry, posegraph
 
     m = cfg.mapping.max_keyframes
     f32 = 4
-    sharded_clouds = (
-        m * cfg.mapping.scan_corner_cap * (3 * f32 + 1)     # corner + valid
-        + m * cfg.mapping.scan_surf_cap * (3 * f32 + 1))    # surf + valid
+    sharded_clouds = -(-m // n_devices) * (
+        cfg.mapping.scan_corner_cap * (3 * f32 + 1)     # corner + valid
+        + cfg.mapping.scan_surf_cap * (3 * f32 + 1))    # surf + valid
     replicated_poses = (
         m * (9 + 3 + 9 + 3) * f32   # R, t, chain_R, chain_t
         + m * f32                   # time
         + 8)                        # count + overflow
     out = {
-        "kf_clouds_per_shard": math.ceil(sharded_clouds / n_devices),
+        "kf_clouds_per_shard": sharded_clouds,
         "kf_poses_replicated": replicated_poses,
         "odom_replicated": tree_bytes(
             odometry.init_state(cfg.odom, cfg.feat, "meta")),

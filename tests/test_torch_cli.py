@@ -5,7 +5,11 @@ Tolerance: the fused trajectories of both CLIs over the same 6 .lpk files
 agree to 1e-3 m (the pipeline tolerance of tests/test_torch_pipeline.py),
 with equal keyframe counts; a run resumed from the CLI's checkpoint
 continues exactly as the uninterrupted run (the same TUM lines but for the
-time column, which restarts with the session).
+time column, which restarts with the session).  ``--mesh N`` (gloo ranks
+with ``--backend cpu``) against the single device: fused positions within
+0.05 m (the mesh rebuilds its submap every step, the single device folds
+keyframes in batches; tests/test_pipeline_dist.py's bound), equal keyframe
+counts, and checkpoints that resume across the two and across N.
 """
 
 import os
@@ -102,13 +106,50 @@ def test_argument_errors(tmp_path):
         tcli.main(["--synthetic", "2", "--backend", "cpu", "--relocalize",
                    "--out", str(tmp_path / "a")])
     assert e.value.code == 2
+    # --mesh on the cards with fewer cards than ranks (none here).
     with pytest.raises(SystemExit) as e:
         tcli.main(["--synthetic", "2", "--mesh", "4",
                    "--out", str(tmp_path / "b")])
     assert e.value.code == 2
     with pytest.raises(SystemExit) as e:
+        tcli.main(["--synthetic", "2", "--backend", "cpu", "--mesh", "-1",
+                   "--out", str(tmp_path / "b")])
+    assert e.value.code == 2
+    with pytest.raises(SystemExit) as e:
         tcli.main(["--backend", "cpu", "--out", str(tmp_path / "c")])
     assert e.value.code == 2
+
+
+def test_mesh_runs_and_checkpoints_cross_over(tmp_path):
+    """``--backend cpu --mesh 2`` writes the five outputs and follows the
+    single-device run; its checkpoint resumes without ``--mesh``, and a
+    single-device checkpoint resumes under ``--mesh 3``."""
+    paths = _write_scans(tmp_path / "scans", 6)
+    base = ["--preset", "small", "--backend", "cpu"]
+
+    def run(name, files, *extra):
+        assert tcli.main(["--scans", *files, *base, *extra,
+                          "--out", str(tmp_path / name)]) == 0
+        return _tum(tmp_path / name / "trajectory_fused.txt")
+
+    direct = run("direct", paths)
+    mesh = run("mesh", paths, "--mesh", "2")
+    for name in OUTPUTS:
+        assert (tmp_path / "mesh" / name).exists(), name
+    assert np.abs(mesh[:, 1:4] - direct[:, 1:4]).max() < 0.05
+    assert _tum(tmp_path / "mesh" / "trajectory_mapped.txt").shape == \
+        _tum(tmp_path / "direct" / "trajectory_mapped.txt").shape
+
+    run("mesh_first", paths[:3], "--mesh", "2")
+    single_after = run("single_after", paths[3:], "--resume",
+                       str(tmp_path / "mesh_first" / "checkpoint.npz"))
+    run("single_first", paths[:3])
+    mesh_after = run("mesh_after", paths[3:], "--mesh", "3", "--resume",
+                     str(tmp_path / "single_first" / "checkpoint.npz"))
+    for after in (single_after, mesh_after):
+        assert np.abs(after[:, 1:4] - direct[3:, 1:4]).max() < 0.05
+    assert _tum(tmp_path / "mesh_after" / "trajectory_mapped.txt").shape == \
+        _tum(tmp_path / "direct" / "trajectory_mapped.txt").shape
 
 
 def test_needs_a_card_without_backend_cpu(tmp_path):

@@ -45,14 +45,16 @@ PORT_MODULES = [
     "models.mapping", "models.pipeline", "utils.interop",
     "utils.synthetic", "cli", "__main__", "utils.io", "utils.checkpoint",
     "utils.export", "utils.profiling", "utils.memory", "utils.debugdump",
-    "utils.metrics", "evals.kidnap", "evals.loop_recovery"]
+    "utils.metrics", "evals.kidnap", "evals.loop_recovery", "parallel.mesh",
+    "parallel.costs", "parallel.frontend_dp", "parallel.posegraph_dist",
+    "parallel.mapping_dist", "parallel.pipeline_dist", "parallel.dryrun"]
 
 
 def test_port_imports_no_jax():
     """Importing every module of the port (the IMU, ICP, pose-graph, loop
-    closure and relocalization modules, the CLI, the utilities and the
-    evaluations among them), and chip_smoke without running it, loads
-    neither jax nor the JAX package."""
+    closure and relocalization modules, the CLI, the utilities, the
+    evaluations and the distributed paths among them), and chip_smoke
+    without running it, loads neither jax nor the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import legoloam_tpu_torch as p\n"
