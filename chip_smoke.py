@@ -10,8 +10,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
   2. print the card's name and power limit;
   3. hold every kernel against its plain PyTorch version on the card, at the
      main path's shapes: K1 (CCL) exactly, on real synthetic scans and seeded
-     random masks, also at the HDL-32E (32 x 1800) and VLS-128 (128 x 1800)
-     shapes; K2 (picks) label for label on the main path's VLP-16 scans as
+     random masks, also at the HDL-32E (32 x 1800), VLS-128 (128 x 1800),
+     OS1-16 (16 x 1024) and OS1-64 (64 x 1024) shapes; K2 (picks) label for label on the main path's VLP-16 scans as
      they are and with ranges quantised to 1/256 m (ties at curvature 0),
      on ray-cast HDL-32E, VLS-128, OS1-16 and OS1-64 scans, at the
      REFERENCE pick counts, at sections 1 and 12, and on seeded stress rings
@@ -31,7 +31,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
   6. time each kernel (wrapper call and bare launch), its plain version and,
      where one exists, a single PyTorch call computing the same function;
      K3 also at the main-path corner shape and a synthetic 1-NN shape
-     (8192 x 49152, ungated), K1 also at the HDL-32E and VLS-128 shapes, K2
+     (8192 x 49152, ungated), K1 also at the HDL-32E, VLS-128, OS1-16 and
+     OS1-64 shapes, K2
      also at the HDL-32E, VLS-128 and OS1-64 shapes and with 0, 28 and 56
      greedy trips (the prologue and the cost of a trip); K3's bound from
      the (query, reference) pairs within the gate; each kernel launch's
@@ -77,7 +78,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
  16. [kidnap] evals.kidnap at its defaults: B's abs ATE < 0.3 m and at
      least 2x better than A's;
  17. [recovery] evals.loop_recovery at its defaults: the ON arm's error
-     over the last 100 scans under half the OFF arm's.
+     over the last 100 scans under half the OFF arm's (16 and 17 run as
+     child processes at the end, with 25 and 26);
  18. [mesh] run_slam_sequence_dist (legoloam_tpu_torch/parallel/) on an
      NCCL group of one rank over the 96 main-path scans: fused ATE < 0.2 m,
      within 0.05 m of [main]'s fused positions, equal keyframe counts, and
@@ -94,8 +96,34 @@ Phases, each fatal on failure (exit code != 0, no result line):
      checkpoint resumed by the single-device CLI over the next 20 files
      (map-frame error < 0.2 m RMS); a --mesh 1 --resume --relocalize
      session from [cli]'s checkpoint passing [cli resume]'s 0.3 m gate.
-  Each path's kernel launches are counted around its run (the CLI runs
-  report theirs in profile.txt); the kernels line sums them.
+ 22. [sensors] HDL-32E, OS1-16, OS1-64 and VLS-128 end to end at
+     for_sensor capacities, 30 scans each of tests/test_sensor_matrix.py's
+     circle: finite, >= 1 keyframe, every fused position within 1.0 m of
+     ground truth, the feature and scan-cloud overflow counters 0, card vs
+     CPU over the first 3 scans < 1e-3 m; then K3 bitwise against the exact
+     search at VLS-128's scan-to-map shapes (the run's last keyframe
+     against its submap cache), timed;
+ 23. [reference] config.REFERENCE end to end over
+     tests/test_reference_preset.py's 33 scans at DEFAULT capacities: fused
+     ATE < 0.60 m, >= 2 keyframes, card vs CPU over 6 scans < 1e-3 m;
+ 24. [pathologies] tests/test_real_pathologies.py's six cases (30 DEFAULT
+     scans each) within their degrade bounds of the clean run, and
+     tests/test_degenerate_stream.py's blackout and 20-point scan: every
+     float of the state finite, the pose advancing;
+ 25. [long ring] evals.long --world loop --scans 800 without and with
+     --imu: fused ATE < 0.2 m and < 0.5x odometry-only, the final mapped
+     rotation |det - 1| < 1e-4, all finite;
+ 26. [long circuit] evals.long --world circuit --scans 1150 --noise 0.02:
+     fused end drift < 1% of the path, odometry < 8%, all finite; the
+     residual along-track and pitch bias of the per-scan increments
+     (printed only).  The five evaluations (16, 17, 25, 26) and the
+     card-vs-CPU runs of 22 and 23 are child processes started together
+     after 22; 23 and 24 run on the card in this process meanwhile.  The
+     JAX package's v5e TPU ledgers are printed beside 25 and 26, labelled
+     as such.
+  Each path's kernel launches are counted around its run (the CLI runs and
+  the evaluations report theirs from their processes); the kernels line
+  sums them.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
@@ -104,6 +132,7 @@ The line before the last is {"kernels": [...]}; the last line is
 import dataclasses
 import datetime
 import glob
+import importlib
 import json
 import math
 import os
@@ -126,8 +155,6 @@ from legoloam_tpu_torch.ops import (_native, ccl_cuda, deskew, features,
                                     features_cuda, icp, knn_cuda, projection,
                                     se3, segmentation, voxel)
 from legoloam_tpu_torch.ops.se3 import Pose, transform_points
-from legoloam_tpu_torch.evals import kidnap as kidnap_eval
-from legoloam_tpu_torch.evals import loop_recovery
 from legoloam_tpu_torch.parallel import mapping_dist
 from legoloam_tpu_torch.parallel import mesh as mesh_mod
 from legoloam_tpu_torch.parallel import pipeline_dist, posegraph_dist
@@ -192,8 +219,48 @@ STATE_TENSORS = 57
 # Rows where the plain k-NN's neighbour set differs from the kernel's, and
 # gated rows compared, over the main path's two searches (see check_knn).
 MAIN_PATH_DIFF = {"rows": 0, "of": 0}
-K1_TALL = ("hdl32e", "vls128")              # K1 checked and timed there
+K1_TALL = ("hdl32e", "vls128", "os1_16", "os1_64")  # K1 checked, timed there
 K2_TALL = ("hdl32e", "vls128", "os1_64")    # K2 timed there
+# [sensors]: tests/test_sensor_matrix.py's run at for_sensor capacities,
+# cut from its CPU size (4 scans, small caps) to these scans at full width;
+# every fused position within SENSOR_ERR_M of ground truth; card vs CPU
+# over the first SENSOR_PARITY_SCANS.
+SENSOR_NAMES = ("hdl32e", "os1_16", "os1_64", "vls128")
+SENSOR_SCANS = 30
+SENSOR_PARITY_SCANS = 3
+SENSOR_ERR_M = 1.0
+# [reference]: tests/test_reference_preset.py's end-to-end run at DEFAULT
+# capacities; card vs CPU over the first REF_PARITY_SCANS.
+REF_SCANS = 33
+REF_PARITY_SCANS = 6
+# [pathologies]: tests/test_real_pathologies.py's cases at its size, with
+# its bounds (degrade factor on the clean run's largest error, floor m).
+PATHOLOGY_SCANS = 30
+PATHOLOGY_BOUNDS = {"wedges": (4.0, 0.15), "dead_rings": (4.0, 0.15),
+                    "dropout": (4.0, 0.15), "spin_warp": (6.0, 0.15),
+                    "moving_object": (6.0, 0.15), "everything": (8.0, 0.3)}
+# The evaluations, each in a child process, all at once: [kidnap] and
+# [recovery] at their defaults, and [long ring] and [long circuit], evals.long
+# at the JAX package's ledger runs.  The JAX package's numbers for the long
+# runs, measured on a v5e TPU (d0292b9:PERF.md:193-202, 527-532), are
+# printed beside the port's.
+EVAL_RUNS = {
+    "kidnap": ("kidnap", []),
+    "recovery": ("loop_recovery", []),
+    "ring": ("long", ["--world", "loop", "--scans", "800"]),
+    "ring_imu": ("long", ["--world", "loop", "--scans", "800", "--imu"]),
+    "circuit": ("long", ["--world", "circuit", "--scans", "1150", "--noise",
+                         "0.02"])}
+LONG_TPU = {
+    "ring": "fused ATE 0.036 m, odometry-only 2.25 m, end drift 0.81 m "
+            "(0.37%)",
+    "ring_imu": "fused ATE 0.064 m, odometry-only 2.09 m, end drift 0.80 m",
+    "circuit": "fused ATE 0.512 m, end drift 1.63 m (0.177%); odometry ATE "
+               "2.16 m, end drift 1.45%"}
+# The card-vs-CPU child's intra-op threads (the five evaluations and this
+# process each keep a core busy meanwhile).
+PARITY_THREADS = 2
+CHILD_TIMEOUT_S = 600
 
 
 def fail(msg: str):
@@ -1120,29 +1187,485 @@ def cli_phases(work, cfg, dev, card, paths):
     return s1, imu_path, os.path.join(out1, "checkpoint.npz"), poses
 
 
-def eval_phases(dev, card, paths):
+def eval_report(res, card, paths):
     """[kidnap] and [recovery]: the two end-to-end evaluations at their
-    defaults, with their kernel launches counted into ``paths``."""
-    t0 = time.perf_counter()
-    res, paths["kidnap"] = counted(lambda: kidnap_eval.main([]))
-    a, b = res["A"]["abs"], res["B"]["abs"]
+    defaults (child processes of ``new_phases``), their gates, and their
+    kernel launches into ``paths``."""
+    r = res["kidnap"]
+    paths["kidnap"] = r["launches"]
+    a, b = r["A"]["abs"], r["B"]["abs"]
     log(f"[kidnap] evals.kidnap at its defaults (800 + 200 scans, 128 "
-        f"candidates): {time.perf_counter() - t0:.1f} s; A {a:.3f} m, B "
-        f"{b:.3f} m abs ATE ({a / max(b, 1e-9):.1f}x), relocalization "
-        f"{res['reloc']}; session 1 {res['session1_s']:.1f} s, session 2 "
-        f"{res['session2_s']:.1f} s; launches {paths['kidnap']} [{card}]")
+        f"candidates), beside the other child processes: "
+        f"{r['seconds']:.1f} s; A {a:.3f} m, B {b:.3f} m abs ATE "
+        f"({a / max(b, 1e-9):.1f}x), relocalization {r['reloc']}; session 1 "
+        f"{r['session1_s']:.1f} s, session 2 {r['session2_s']:.1f} s; "
+        f"launches {r['launches']} [{card}]")
     if not (a >= 2 * b and b < 0.3):
         fail(f"kidnap: A {a:.3f} m, B {b:.3f} m")
-
-    t0 = time.perf_counter()
-    res, paths["recovery"] = counted(lambda: loop_recovery.main([]))
+    r = res["recovery"]
+    paths["recovery"] = r["launches"]
     log(f"[recovery] evals.loop_recovery at its defaults (1100 + 600 scans, "
-        f"half 100, sigma 0.03): {time.perf_counter() - t0:.1f} s; last "
-        f"{res['window']} scans OFF {res['final_off']:.3f} m, ON "
-        f"{res['final_on']:.3f} m, {res['closures']} closures; launches "
-        f"{paths['recovery']} [{card}]")
-    if not res["final_on"] < 0.5 * res["final_off"]:
+        f"half 100, sigma 0.03), beside the other child processes: "
+        f"{r['seconds']:.1f} s = {1700 / r['seconds']:.2f} scans/s; last "
+        f"{r['window']} scans OFF {r['final_off']:.3f} m, ON "
+        f"{r['final_on']:.3f} m, {r['closures']} closures; launches "
+        f"{r['launches']} [{card}]")
+    if not r["final_on"] < 0.5 * r["final_off"]:
         fail("recovery: the ON arm is not under half the OFF arm's error")
+
+
+# ---------------------------------------------------------------------------
+# The long-horizon evaluation, the sensor matrix, REFERENCE, pathologies
+# ---------------------------------------------------------------------------
+
+def eval_child(module, argv, out_path):
+    """Body of an evaluation's child process: ``evals.<module>.main(argv)``
+    on the card, its kernel launches counted from the process's start; the
+    results go to ``out_path`` as JSON."""
+    main_fn = importlib.import_module(
+        f"legoloam_tpu_torch.evals.{module}").main
+    _native.reset_counts()
+    t0 = time.perf_counter()
+    res = main_fn(argv)                 # ends with a read back to the host
+    res["seconds"] = time.perf_counter() - t0
+    if "mapped_R" in res:
+        res["mapped_det"] = float(np.linalg.det(
+            res.pop("mapped_R").astype(np.float64)))
+    res["launches"] = {n: k.launches for n, k in _native.KERNELS.items()}
+    with open(out_path, "w") as f:
+        json.dump(res, f, default=float)
+
+
+def parity_cfg(name):
+    """The configuration of a card-vs-CPU case: a sensor's ``for_sensor``
+    or REFERENCE."""
+    return REFERENCE if name == "reference" else for_sensor(name)
+
+
+def drive(scans, cfg, dev, check=None):
+    """``slam_scan_step`` over ``scans`` at the mapping cadence, without the
+    scan-1 bootstrap (the drivers of tests/test_sensor_matrix.py and
+    tests/test_reference_preset.py); ``check(k, state, out)`` after each
+    scan.  Returns the fused positions and the final state."""
+    state = pipeline.init_slam_state(cfg, dev)
+    fused = []
+    for k, s in enumerate(scans):
+        state, out = pipeline.slam_scan_step(
+            state, *(a.to(dev) for a in s), cfg, k * cfg.sensor.scan_period,
+            run_mapping=(k % cfg.mapping_every == 0))
+        fused.append(out.fused_pose.t)
+        if check is not None:
+            check(k, state, out)
+    return torch.stack(fused), state
+
+
+def cpu_parity_child(in_path, out_path, threads):
+    """Body of the card-vs-CPU child process: ``drive`` on the CPU (plain
+    versions) over each case's scans saved by the parent; saves the fused
+    positions."""
+    torch.set_num_threads(threads)
+    cases = torch.load(in_path, weights_only=False)
+    out = {}
+    for name, scans in cases.items():
+        t0 = time.perf_counter()
+        fused, _ = drive(scans, parity_cfg(name), "cpu")
+        out[name] = (fused, time.perf_counter() - t0)
+    torch.save(out, out_path)
+
+
+def start_child(call, log_path):
+    """``python -c 'import chip_smoke; chip_smoke.<call>'`` from the repo
+    root, its output to ``log_path``."""
+    log = open(log_path, "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def wait_children(children, timeout_s):
+    """Wait for every child; fail with the end of its log where one fails
+    or the time runs out (the caller stops the rest)."""
+    deadline = time.perf_counter() + timeout_s
+    for name, (proc, log_path) in children.items():
+        try:
+            rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        if rc != 0:
+            fail(f"{name}: child exit {rc}\n"
+                 + open(log_path).read()[-3000:])
+
+
+def stop_children(children):
+    for proc, _ in children.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def scan_cloud_overflow(odom_state, mc):
+    """Voxels that the mapping step's scan downsample (models/mapping.py,
+    ``downsampleCurrentScan``) drops beyond ``scan_corner_cap`` /
+    ``scan_surf_cap`` for the clouds the odometry handed it."""
+    zero = torch.zeros(3, device=odom_state.xi.device)
+    c = odom_state.last_corner
+    s = torch.cat([odom_state.last_surf.xyz, odom_state.last_outlier.xyz])
+    sv = torch.cat([odom_state.last_surf.valid,
+                    odom_state.last_outlier.valid])
+    c_of = voxel.voxel_downsample(c.xyz, c.valid, mc.corner_leaf,
+                                  mc.scan_corner_cap, origin=zero,
+                                  return_overflow=True)[2]
+    s_of = voxel.voxel_downsample(s, sv, mc.surf_leaf, mc.scan_surf_cap,
+                                  origin=zero, return_overflow=True)[2]
+    return int(c_of), int(s_of)
+
+
+def sensor_run(name, dev):
+    """[sensors] for one geometry: SENSOR_SCANS scans of default_scene on
+    tests/test_sensor_matrix.py's circle at ``for_sensor`` capacities, with
+    every scan's error and overflow counters checked.  Returns (fused ATE,
+    scans/s, launches, the final state, the first scans on the CPU)."""
+    cfg = for_sensor(name)
+    scene = synthetic.default_scene()
+    poses = synthetic.circle_trajectory(SENSOR_SCANS + 1, radius=18.0,
+                                        angular_rate=0.009, device=dev)
+    scans = [synthetic.raycast_scan(
+        scene, Pose(poses.R[k], poses.t[k]), cfg.sensor,
+        next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
+        for k in range(SENSOR_SCANS)]
+    gt = poses.t[:SENSOR_SCANS] - poses.t[0]
+    worst = {"err": 0.0, "feat": 0, "scan": (0, 0)}
+
+    def check(k, state, out):
+        worst["err"] = max(worst["err"],
+                           float((out.fused_pose.t - gt[k]).norm()))
+        worst["feat"] = max(worst["feat"],
+                            int(out.diag.feat_overflow.max()))
+        if k % cfg.mapping_every == 0:
+            of = scan_cloud_overflow(state.odom, cfg.mapping)
+            worst["scan"] = tuple(max(a, b) for a, b in zip(worst["scan"],
+                                                             of))
+
+    drive(scans[:2], cfg, dev)                       # warm-up
+    torch.cuda.synchronize()
+    ((fused, state), seconds), launches = counted(
+        lambda: timed(lambda: drive(scans, cfg, dev, check)))
+    ate = float(metrics.ate_rmse(fused, gt))
+    n_kf = int(state.mapping.kf.count)
+    if not torch.isfinite(fused).all() or n_kf < 1:
+        fail(f"sensors {name}: non-finite pose or no keyframe")
+    if worst["err"] >= SENSOR_ERR_M:
+        fail(f"sensors {name}: a fused position {worst['err']:.3f} m from "
+             f"ground truth (bound {SENSOR_ERR_M} m)")
+    if worst["feat"] or any(worst["scan"]):
+        fail(f"sensors {name}: overflow, features {worst['feat']}, scan "
+             f"clouds (corner, surf) {worst['scan']}")
+    log(f"[sensors] {name} {cfg.sensor.n_scan} x {cfg.sensor.horizon_scan} "
+        f"(for_sensor caps: features {cfg.feat.max_less_flat} less-flat, "
+        f"scan clouds {cfg.mapping.scan_corner_cap}/"
+        f"{cfg.mapping.scan_surf_cap}): {SENSOR_SCANS} scans in "
+        f"{seconds:.2f} s = {SENSOR_SCANS / seconds:.2f} scans/s; fused ATE "
+        f"{ate:.4f} m, largest error {worst['err']:.4f} m; {n_kf} keyframes;"
+        f" overflow 0; launches {launches}")
+    first = [tuple(a.cpu() for a in s) for s in scans[:SENSOR_PARITY_SCANS]]
+    return fused, launches, state, first
+
+
+def knn_timings(label, q, qv, r, rv, k, gate, card, sessions=3):
+    """Print K3's times at one shape: a wrapper call, the bare launch, the
+    device time a launch, the bound, the plain version and the library
+    call."""
+    p = knn_cuda.gated_pairs(q, qv, r, rv, gate)
+    b, by = bound_ms(knn_bytes(q.shape[0], r.shape[0], k), 8.0 * p)
+    per = device_us_per_launch(
+        lambda: knn_cuda.knn(q, qv, r, rv, k, gate=gate), sessions=sessions)
+    ms = time_ms(lambda: knn_cuda.knn(q, qv, r, rv, k, gate=gate), 50)
+    bare_k = bare_ms(bare_knn(q, qv, r, rv, k, gate), 50)
+    plain = time_ms(lambda: voxel.knn(q, qv, r, rv, k), 3, 1)
+    lib = time_ms(lambda: library_knn(q, qv, r, rv, k), 3, 1)
+    log(f"[knn] {label}: ms {ms:.4f}, bare {bare_k:.4f}, device "
+        + (", ".join(f"{n} {v:.2f} us" for n, v in per.items())
+           or "not measured")
+        + f", bound {b:.6f} ({by}, {p} pairs), plain {plain:.3f}, library "
+        f"{lib:.2f} [{card}]")
+
+
+def vls128_knn(state, cfg, card, err):
+    """K3 at VLS-128's scan-to-map shapes, on the [sensors] run's last
+    keyframe against its submap cache: bitwise to the exact search, timed."""
+    kf, cache = state.mapping.kf, state.mapping.cache
+    last = int(kf.count) - 1
+    pose = Pose(kf.R[last], kf.t[last])
+    gate = float(cfg.mapping.nn_max_dist) ** 0.5
+    sets = {"surf": (transform_points(pose, kf.surf[last]),
+                     kf.surf_valid[last], cache.s_pts, cache.s_valid),
+            "corner": (transform_points(pose, kf.corner[last]),
+                       kf.corner_valid[last], cache.c_pts, cache.c_valid)}
+    for name, (q, qv, r, rv) in sets.items():
+        label = f"vls128 scan-to-map {name} {q.shape[0]} x {r.shape[0]}"
+        err["knn"] = max(err["knn"], check_knn(f"{label} k=5", q, qv, r, rv,
+                                               5, gate))
+        knn_timings(f"{label} 5-NN ({int(qv.sum())} valid queries, "
+                    f"{int(rv.sum())} valid references)", q, qv, r, rv, 5,
+                    gate, card)
+
+
+def reference_scans(dev):
+    """tests/test_reference_preset.py's 33 scans (the last one rigid) and
+    trajectory."""
+    scene = synthetic.default_scene()
+    n = REF_SCANS
+    poses = synthetic.circle_trajectory(n, radius=20.0, angular_rate=0.0075,
+                                        device=dev)
+    scans = []
+    for k in range(n):
+        nxt = min(k + 1, n - 1)
+        scans.append(synthetic.raycast_scan(
+            scene, Pose(poses.R[k], poses.t[k]), REFERENCE.sensor,
+            next_pose=Pose(poses.R[nxt], poses.t[nxt]), motion=k + 1 < n))
+    return scans, poses
+
+
+def pathology_phase(dev, card, paths):
+    """[pathologies]: tests/test_real_pathologies.py's six cases at its size
+    (30 DEFAULT scans each, run_slam_sequence) against the clean run, and
+    tests/test_degenerate_stream.py's blackout and 20-point scan."""
+    cfg = DEFAULT
+    scene = synthetic.default_scene()
+    poses = synthetic.circle_trajectory(PATHOLOGY_SCANS + 1, radius=18.0,
+                                        angular_rate=0.0075, device=dev)
+    gt = poses.t[:PATHOLOGY_SCANS] - poses.t[0]
+    t0 = time.perf_counter()
+    launches = {n: 0 for n in _native.KERNELS}
+
+    def run(scans):
+        (fused, _), counts = counted(
+            lambda: pipeline.run_slam_sequence(scans, cfg, device=dev))
+        for n in counts:
+            launches[n] += counts[n]
+        if not torch.isfinite(fused.t).all():
+            return float("inf")
+        return float((fused.t - gt).norm(dim=1).max())
+
+    clean = [synthetic.raycast_scan(
+        scene, Pose(poses.R[k], poses.t[k]), cfg.sensor,
+        next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
+        for k in range(PATHOLOGY_SCANS)]
+    clean_max = run(clean)
+    rows = []
+    for case in synthetic.PATHOLOGIES:
+        err = run(synthetic.pathology_scans(case, scene, poses, cfg.sensor,
+                                            clean=clean))
+        factor, floor = PATHOLOGY_BOUNDS[case]
+        bound = max(clean_max * factor, floor)
+        rows.append(f"{case} {err:.4f} m (bound {bound:.3f})")
+        if not err < bound:
+            fail(f"pathologies {case}: largest error {err:.4f} m >= "
+                 f"{bound:.3f} m")
+
+    # The degenerate stream: a blackout and a 20-point scan mid-stream.
+    n = 8
+    dposes = synthetic.circle_trajectory(n + 1, radius=20.0,
+                                         angular_rate=0.0075, device=dev)
+    good = [synthetic.raycast_scan(
+        scene, Pose(dposes.R[k], dposes.t[k]), cfg.sensor,
+        next_pose=Pose(dposes.R[k + 1], dposes.t[k + 1]), motion=True)
+        for k in range(n)]
+    P = cfg.sensor.n_points
+    blackout = (torch.zeros(P, 3, device=dev),
+                torch.zeros(P, dtype=torch.bool, device=dev),
+                torch.zeros(P, dtype=torch.int32, device=dev))
+    sparse = tuple(a.clone() for a in blackout)
+    sparse[0][:20, 0] = torch.linspace(2.0, 10.0, 20, device=dev)
+    sparse[0][:20, 2] = -0.8
+    sparse[1][:20] = True
+    seq = [good[0], good[1], blackout, good[2], sparse, good[3], good[4],
+           good[5]]
+    bad = []
+
+    def finite_state(k, state, out):
+        leaves = [state]
+        while leaves:
+            x = leaves.pop()
+            if isinstance(x, torch.Tensor):
+                if x.is_floating_point() and not torch.isfinite(x).all():
+                    bad.append(k)
+            else:
+                leaves.extend(x)
+        if not (torch.isfinite(out.fused_pose.t).all()
+                and torch.isfinite(out.fused_pose.R).all()):
+            bad.append(k)
+
+    (fused, _), counts = counted(lambda: drive(seq, cfg, dev, finite_state))
+    for name in counts:
+        launches[name] += counts[name]
+    last = float(fused[-1].norm())
+    seconds = time.perf_counter() - t0
+    n_scans = (len(synthetic.PATHOLOGIES) + 1) * PATHOLOGY_SCANS + n
+    paths["pathologies"] = launches
+    log(f"[pathologies] {len(synthetic.PATHOLOGIES)} cases + the clean run "
+        f"x {PATHOLOGY_SCANS} DEFAULT scans and the degenerate stream "
+        f"({n_scans} scans, ray casting included) in {seconds:.1f} s = "
+        f"{n_scans / seconds:.2f} scans/s; clean largest error "
+        f"{clean_max:.4f} m; " + ", ".join(rows)
+        + f"; degenerate stream: non-finite at scans {sorted(set(bad))}, "
+        f"last position {last:.3f} m from the origin (bound 0.1-20); "
+        f"launches {launches} [{card}]")
+    if bad or not 0.1 < last < 20.0:
+        fail("pathologies: the degenerate stream did not stay finite and "
+             "advancing")
+
+
+def circuit_bias(path):
+    """The circuit's residual biases from an ``evals.long --save`` file:
+    the median along-track scale error of the per-scan increments (the
+    step in the previous pose's frame, projected on the true step's
+    direction) and the mean pitch error per scan, for the fused and the
+    odometry-only trajectories."""
+    d = np.load(path)
+    R0 = d["gt_R"][0].astype(np.float64)
+    gt_R = np.einsum("ji,njk->nik", R0, d["gt_R"].astype(np.float64))
+    gt_t = d["gt_t"].astype(np.float64)
+
+    def steps(R, t):
+        dt = np.einsum("nji,nj->ni", R[:-1], t[1:] - t[:-1])
+        dR = np.einsum("nji,njk->nik", R[:-1], R[1:])
+        return dt, dR
+
+    g_dt, g_dR = steps(gt_R, gt_t)
+    length = np.linalg.norm(g_dt, axis=1)
+    u = g_dt / np.maximum(length, 1e-9)[:, None]
+    out = {}
+    for name in ("fused", "odom"):
+        e_dt, e_dR = steps(d[f"{name}_R"].astype(np.float64),
+                           d[f"{name}_t"].astype(np.float64))
+        scale = (np.sum(e_dt * u, axis=1) - length) / np.maximum(length,
+                                                                  1e-9)
+        E = np.einsum("nji,njk->nik", g_dR, e_dR)
+        pitch = np.degrees(np.arcsin(np.clip(-E[:, 2, 0], -1.0, 1.0)))
+        out[name] = (float(np.median(scale[length > 0.1])),
+                     float(np.mean(pitch)))
+    return out
+
+
+def new_phases(dev, card, paths, err):
+    """[sensors]; then, while [reference] and [pathologies] run on the card
+    here, the child processes: the five evaluations ([kidnap], [recovery],
+    [long ring] twice, [long circuit]) and the card-vs-CPU runs of
+    [sensors] and [reference]."""
+    with tempfile.TemporaryDirectory() as work:
+        sensors, parity = {}, {}
+        for name in SENSOR_NAMES:
+            fused, launches, state, first = sensor_run(name, dev)
+            sensors[name] = fused
+            paths[f"sensors {name}"] = launches
+            parity[name] = first
+            if name == "vls128":
+                vls128_knn(state, for_sensor(name), card, err)
+            del state
+        ref_scans, ref_poses = reference_scans(dev)
+        parity["reference"] = [tuple(a.cpu() for a in s)
+                               for s in ref_scans[:REF_PARITY_SCANS]]
+        torch.save(parity, os.path.join(work, "parity_in.pt"))
+
+        def work_file(name):
+            return os.path.join(work, name)
+
+        children = {}
+        for name, (module, argv) in EVAL_RUNS.items():
+            if name == "circuit":
+                argv = argv + ["--save", work_file("circuit.npz")]
+            children[name] = (start_child(
+                f"eval_child({module!r}, {argv!r}, "
+                f"{work_file(name + '.json')!r})", work_file(name + ".log")),
+                work_file(name + ".log"))
+        children["card vs CPU"] = (start_child(
+            f"cpu_parity_child({work_file('parity_in.pt')!r}, "
+            f"{work_file('parity_out.pt')!r}, {PARITY_THREADS})",
+            work_file("parity.log")), work_file("parity.log"))
+        t_children = time.perf_counter()
+        try:
+            cfg = REFERENCE
+            ((fused, state), seconds), paths["reference"] = counted(
+                lambda: timed(lambda: drive(ref_scans, cfg, dev)))
+            ate = float(metrics.ate_rmse(fused[:-1], ref_poses.t[1:]))
+            n_kf = int(state.mapping.kf.count)
+            del state
+            log(f"[reference] REFERENCE (picks 2/20/4, LM 25 iterations, "
+                f"scan-to-map refresh every iteration, stabilizers off) at "
+                f"DEFAULT capacities, {REF_SCANS} scans in {seconds:.2f} s = "
+                f"{REF_SCANS / seconds:.2f} scans/s (beside the child "
+                f"processes): fused ATE {ate:.4f} m (bound 0.60), {n_kf} "
+                f"keyframes; launches {paths['reference']} [{card}]")
+            if not (torch.isfinite(fused).all() and ate < 0.60
+                    and n_kf >= 2):
+                fail(f"reference: ATE {ate:.4f} m, {n_kf} keyframes")
+            sensors["reference"] = fused
+            pathology_phase(dev, card, paths)
+            wait_children(children, CHILD_TIMEOUT_S)
+        finally:
+            stop_children(children)
+        t_children = time.perf_counter() - t_children
+
+        cpu = torch.load(work_file("parity_out.pt"), weights_only=False)
+        for name, (f_cpu, cpu_s) in cpu.items():
+            k = f_cpu.shape[0]
+            gap = float((sensors[name][:k].cpu() - f_cpu).abs().max())
+            log(f"[{'reference' if name == 'reference' else 'sensors'}] "
+                f"{name}: first {k} scans, card vs CPU max fused position "
+                f"difference {gap:.3g} m (CPU {cpu_s:.1f} s, "
+                f"{PARITY_THREADS} threads)")
+            if gap >= 1e-3:
+                fail(f"{name}: card vs CPU {gap:.3g} m >= 1e-3 m")
+
+        res = {}
+        for name in EVAL_RUNS:
+            with open(work_file(name + ".json")) as f:
+                res[name] = json.load(f)
+            with open(work_file(name + ".log")) as f:
+                for line in f.read().strip().splitlines():
+                    log(f"[{name}] {line}")
+        bias = circuit_bias(work_file("circuit.npz"))
+
+    eval_report(res, card, paths)
+    for name in LONG_TPU:
+        r = res[name]
+        paths[f"long {name}"] = r["launches"]
+        log(f"[long {'circuit' if name == 'circuit' else 'ring'}] {name}: "
+            f"{r['scans']} scans, {r['path']:.1f} m in {r['seconds']:.1f} s "
+            f"= {r['scans'] / r['seconds']:.2f} scans/s (beside the other "
+            f"child processes, ray casting included); fused ATE "
+            f"{r['ate_fused']:.4f} m, odometry-only {r['ate_odom']:.4f} m; "
+            f"end drift fused {r['drift_fused']:.4f} m "
+            f"({100 * r['drift_fused'] / r['path']:.3f}%), odometry "
+            f"{r['drift_odom']:.4f} m "
+            f"({100 * r['drift_odom'] / r['path']:.3f}%); {r['keyframes']} "
+            f"keyframes; mapped |det R - 1| {abs(r['mapped_det'] - 1):.2e}; "
+            f"launches {r['launches']} [{card}] -- the JAX package on a v5e "
+            f"TPU (not this port's numbers): {LONG_TPU[name]}")
+        ok = all(math.isfinite(r[k]) for k in ("ate_fused", "ate_odom",
+                                                 "drift_fused", "drift_odom"))
+        if name == "circuit":
+            ok = ok and r["drift_fused"] < 0.01 * r["path"] \
+                and r["drift_odom"] < 0.08 * r["path"]
+        else:
+            ok = ok and r["ate_fused"] < 0.2 \
+                and r["ate_fused"] < 0.5 * r["ate_odom"] \
+                and abs(r["mapped_det"] - 1) < 1e-4
+        if not ok:
+            fail(f"long {name}: outside the gates")
+    log(f"[long circuit] residual bias (print only): median along-track "
+        f"scale error of the per-scan increments fused {bias['fused'][0]:+.4%}"
+        f", odometry {bias['odom'][0]:+.4%}; mean pitch error per scan fused "
+        f"{bias['fused'][1]:+.4f} deg, odometry {bias['odom'][1]:+.4f} deg "
+        f"(the JAX package on a v5e TPU: -0.9% along-track, -0.034 deg a "
+        f"scan pitch, odometry)")
+    log(f"[children] the {len(EVAL_RUNS)} evaluations and the card-vs-CPU "
+        f"runs took {t_children:.1f} s from their start [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1777,19 +2300,8 @@ def main() -> int:
             f"{name} {q.shape[0]} x {r.shape[0]} k=1 ungated", q, qv, r, rv,
             1, None))
     for name, (q, qv, r, rv) in icp_sets.items():
-        p = knn_cuda.gated_pairs(q, qv, r, rv, None)
-        b, by = bound_ms(knn_bytes(q.shape[0], r.shape[0], 1), 8.0 * p)
-        per = device_us_per_launch(lambda: knn_cuda.knn(q, qv, r, rv, 1),
-                                   sessions=6)
-        ms = time_ms(lambda: knn_cuda.knn(q, qv, r, rv, 1), 50)
-        bare_k = bare_ms(bare_knn(q, qv, r, rv, 1, None), 50)
-        plain = time_ms(lambda: voxel.knn(q, qv, r, rv, 1), 3, 1)
-        lib = time_ms(lambda: library_knn(q, qv, r, rv, 1), 3, 1)
-        log(f"[knn] {name} {q.shape[0]} x {r.shape[0]} 1-NN ungated: ms "
-            f"{ms:.4f}, bare {bare_k:.4f}, device " + (", ".join(
-                f"{k} {v:.2f} us" for k, v in per.items()) or "not measured")
-            + f", bound {b:.6f} ({by}, {p} pairs), plain {plain:.3f}, "
-            f"library {lib:.2f} [{card}]")
+        knn_timings(f"{name} {q.shape[0]} x {r.shape[0]} 1-NN ungated",
+                    q, qv, r, rv, 1, None, card, sessions=6)
     H = torch.randn(3, 3, generator=torch.Generator().manual_seed(3)).to(dev)
     log(f"[icp] 3x3 rotation (icp.kabsch_rotation, torch.linalg.svd): "
         f"{time_ms(lambda: icp.kabsch_rotation(H), 200):.4f} ms a call "
@@ -1907,7 +2419,9 @@ def main() -> int:
         # 21. The CLI's --mesh.
         mesh_cli_phase(work, cfg, dev, card, s1, imu_path, ckpt, cli_poses,
                        paths)
-    eval_phases(dev, card, paths)
+    # 16-17, 22-26. The sensor matrix, REFERENCE, the pathologies and the
+    # evaluations.
+    new_phases(dev, card, paths, err)
 
     # Every kernel of each path ran in it; the kernels line counts every
     # path's launches.

@@ -171,6 +171,11 @@ def se3_log(p: Pose) -> torch.Tensor:
     return torch.cat([w, v], dim=-1)
 
 
+def retract(p: Pose, xi: torch.Tensor) -> Pose:
+    """Left-multiplicative update: exp(xi) ∘ p."""
+    return compose(se3_exp(xi), p)
+
+
 def retract_about(p: Pose, xi: torch.Tensor, center: torch.Tensor) -> Pose:
     """Left-multiplicative update whose rotation acts about ``center``:
     x -> exp(ω)·(x − center) + center + v (pairs with Jacobians built from
@@ -216,6 +221,26 @@ def mat_to_euler_zyx(R: torch.Tensor):
     roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
     yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
     return roll, pitch, yaw
+
+
+# ---------------------------------------------------------------------------
+# Reference-frame comparison helpers
+# ---------------------------------------------------------------------------
+
+# The reference's camera convention: p_cam = (p_lidar.y, p_lidar.z, p_lidar.x)
+# (src/featureAssociation.cpp:500-502); as a rotation, lidar -> camera.
+_SWAP = ((0.0, 1.0, 0.0), (0.0, 0.0, 1.0), (1.0, 0.0, 0.0))
+
+
+def lidar_to_camera(p: Pose) -> Pose:
+    """Express a lidar-frame pose in the reference's camera convention."""
+    S = torch.tensor(_SWAP, dtype=p.t.dtype, device=p.t.device)
+    return Pose(S @ p.R @ S.T, torch.einsum("ij,...j->...i", S, p.t))
+
+
+def camera_to_lidar(p: Pose) -> Pose:
+    S = torch.tensor(_SWAP, dtype=p.t.dtype, device=p.t.device)
+    return Pose(S.T @ p.R @ S, torch.einsum("ji,...j->...i", S, p.t))
 
 
 def project_through_correction(t_now: Pose, t_bef: Pose, t_aft: Pose) -> Pose:

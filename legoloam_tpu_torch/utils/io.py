@@ -91,6 +91,16 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the scan-IO library builds and loads (``library()`` raises
+    with the compiler's message where this is False)."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 # ---------------------------------------------------------------------------
 # Writers
 # ---------------------------------------------------------------------------

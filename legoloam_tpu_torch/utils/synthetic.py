@@ -402,3 +402,80 @@ def raycast_scan(scene: Scene, pose: Pose, sensor: SensorConfig,
     pts = dirs * torch.where(valid, s, torch.zeros_like(s))[:, None]
     ring = torch.arange(n, dtype=torch.int32, device=dev).repeat(h)
     return pts, valid, ring
+
+
+PATHOLOGIES = ("wedges", "dead_rings", "dropout", "spin_warp",
+               "moving_object", "everything")
+
+
+def pathology_scans(case: str, scene: Scene, poses: Pose,
+                    sensor: SensorConfig, clean=None):
+    """The real-sensor artefacts of tests/test_real_pathologies.py applied
+    to the motion-distorted scans along ``poses`` (one scan a pose but the
+    last), on the poses' device:
+
+      wedges         two 18-degree azimuth wedges of missing returns a scan
+                     (packet loss), at scan-varying positions;
+      dead_rings     rings 3 and 11 never return;
+      dropout        35% of the returns missing at random;
+      spin_warp      a 10% spin-rate oscillation (``raycast_scan``'s
+                     ``spin_warp``);
+      moving_object  a 3 x 2 x 2 m box crossing the scene against the path,
+                     ~1.2 m a scan;
+      everything     a 15-degree wedge, ring 7 dead, 20% dropout, a 5% spin
+                     oscillation and 2 cm range noise at once.
+
+    ``clean``: the clean scans, where already cast.  Random draws come from
+    one ``torch.Generator`` a scan, seeded with the scan index (dropout;
+    noise) or 1000 + the index (the combined case's dropout): the masks are
+    not the JAX test's, whose draws come from JAX PRNG keys."""
+    if case not in PATHOLOGIES:
+        raise ValueError(f"unknown pathology {case!r}; one of {PATHOLOGIES}")
+    dev = poses.t.device
+    n_scans = poses.t.shape[0] - 1
+    n, h = sensor.n_scan, sensor.horizon_scan
+    cols = torch.div(torch.arange(n * h, device=dev), n,
+                     rounding_mode="floor")
+
+    def wedge(start, width):
+        return ((cols - start) % h) < width
+
+    def cast(k, scene_k=scene, **kw):
+        return raycast_scan(scene_k, Pose(poses.R[k], poses.t[k]), sensor,
+                            next_pose=Pose(poses.R[k + 1], poses.t[k + 1]),
+                            motion=True, **kw)
+
+    def uniform(seed, shape):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.rand(shape, generator=gen, device=dev)
+
+    if clean is None and case in ("wedges", "dead_rings", "dropout"):
+        clean = [cast(k) for k in range(n_scans)]
+    out = []
+    for k in range(n_scans):
+        if case == "wedges":
+            p, v, r = clean[k]
+            s1 = (k * 131) % h
+            v = v & ~(wedge(s1, h // 20) | wedge((s1 + h // 3) % h, h // 20))
+        elif case == "dead_rings":
+            p, v, r = clean[k]
+            v = v & ~((r == 3) | (r == 11))
+        elif case == "dropout":
+            p, v, r = clean[k]
+            v = v & (uniform(k, v.shape) > 0.35)
+        elif case == "spin_warp":
+            p, v, r = cast(k, spin_warp=0.1)
+        elif case == "moving_object":
+            bx, by = 15.0 - 1.2 * k, -2.0 + 0.4 * k
+            car = torch.tensor([[bx, by, 0.0, bx + 3.0, by + 2.0, 2.0]],
+                               dtype=torch.float32, device=dev)
+            p, v, r = cast(k, Scene(torch.cat([scene.boxes.to(dev), car]),
+                                    scene.cylinders))
+        else:
+            gen = torch.Generator(device=dev).manual_seed(k)
+            p, v, r = cast(k, spin_warp=0.05, noise_sigma=0.02,
+                           generator=gen)
+            v = v & ~wedge((k * 173) % h, h // 24) \
+                & (uniform(1000 + k, v.shape) > 0.2) & (r != 7)
+        out.append((p, v, r))
+    return out

@@ -45,9 +45,10 @@ PORT_MODULES = [
     "models.mapping", "models.pipeline", "utils.interop",
     "utils.synthetic", "cli", "__main__", "utils.io", "utils.checkpoint",
     "utils.export", "utils.profiling", "utils.memory", "utils.debugdump",
-    "utils.metrics", "evals.kidnap", "evals.loop_recovery", "parallel.mesh",
-    "parallel.costs", "parallel.frontend_dp", "parallel.posegraph_dist",
-    "parallel.mapping_dist", "parallel.pipeline_dist", "parallel.dryrun"]
+    "utils.metrics", "evals.kidnap", "evals.loop_recovery", "evals.long",
+    "parallel.mesh", "parallel.costs", "parallel.frontend_dp",
+    "parallel.posegraph_dist", "parallel.mapping_dist",
+    "parallel.pipeline_dist", "parallel.dryrun"]
 
 
 def test_port_imports_no_jax():

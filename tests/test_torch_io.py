@@ -148,6 +148,12 @@ def test_unreadable_scan_raises(tmp_path):
         tio.read_scan(p, CAP)
 
 
+def test_native_builds():
+    """tests/test_io.py's assertion, on the port's library."""
+    assert tio.native_available(), "g++ build of csrc/legoio.cpp failed"
+    assert jio.native_available()
+
+
 def test_build_is_keyed_by_content():
     path = tio.library_path()
     assert tio.build() == path and path.exists()

@@ -59,6 +59,27 @@ def test_se3_exp_log_compose_inverse():
         _close(a, b, rtol=1e-5, atol=1e-4)
 
 
+def test_retract_and_camera_frame_swap():
+    """``retract`` is exp(xi) ∘ p as in the JAX package; the lidar <->
+    camera swap (featureAssociation.cpp:500-502) is an involution and maps
+    x -> z, y -> x, z -> y (tests/test_se3.py's checks), both against the
+    JAX functions."""
+    jp = jse3.se3_exp(_rand((8, 6), 10, 0.6))
+    tp = tse3.Pose(tt(jp.R), tt(jp.t))
+    xi = _rand((6,), 11, 0.3)
+    for a, b in zip(tse3.retract(tse3.Pose(tp.R[0], tp.t[0]), tt(xi)),
+                    jse3.retract(jse3.Pose(jp.R[0], jp.t[0]), xi)):
+        _close(a, b)
+    for fn in ("lidar_to_camera", "camera_to_lidar"):
+        for a, b in zip(getattr(tse3, fn)(tp), getattr(jse3, fn)(jp)):
+            _close(a, b, rtol=0, atol=0)
+    back = tse3.camera_to_lidar(tse3.lidar_to_camera(tp))
+    _close(back.R, tp.R, rtol=0, atol=1e-6)
+    _close(back.t, tp.t, rtol=0, atol=1e-6)
+    fwd = tse3.Pose(torch.eye(3), torch.tensor([1.0, 2.0, 3.0]))
+    _close(tse3.lidar_to_camera(fwd).t, [2.0, 3.0, 1.0], rtol=0, atol=1e-6)
+
+
 def test_interp_euler_project():
     Ra = np.asarray(jse3.so3_exp(_rand((16, 3), 5, 0.8)))
     Rb = np.asarray(jse3.so3_exp(_rand((16, 3), 6, 0.8)))
