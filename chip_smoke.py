@@ -24,8 +24,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
   4. run the full main path (frontend -> odometry -> scan-to-map every 3rd
      scan -> fusion) at the DEFAULT configuration (VLP-16 16x1800, submap
      caps 12288/49152, scan caps 2048/8192, 4096-keyframe store) over 96
-     ring-world scans, with every kernel's launch count read around the run;
-     fused ATE against ground truth < 0.2 m;
+     ring-world scans through the drivers' step graph
+     (models/step_graph.py: each segment of the step captured as a CUDA
+     graph at its first run, replayed after; a replay counts the launches
+     its capture recorded), with every kernel's launch count read around
+     the run; fused ATE against ground truth < 0.2 m;
+  4b. [graph] the same scans through a StepGraph whose graphs were
+     captured on a first pass, replayed from a fresh state, against the
+     eager body (graph=False): fused positions within GRAPH_POS_TOL
+     (bitwise expected) and equal keyframe counts, scans/s of both,
+     per-scan latency (median, p99) of mapping and other scans, host reads
+     per scan (0 on a non-mapping scan, at most 1 on a mapping scan), the
+     card's idle share over a replayed pass (torch.profiler); the same
+     graph-vs-eager check on the IMU path (9) and, with the CG chunk sizes
+     of PCG_CHUNKS timed, on the loop lap's first accepted attempt (7);
   5. run the first 6 scans on the card and on the CPU (plain versions):
      fused trajectories agree to 1e-3 m;
   6. time each kernel (wrapper call and bare launch), its plain version and,
@@ -121,6 +133,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      after 22; 23 and 24 run on the card in this process meanwhile.  The
      JAX package's v5e TPU ledgers are printed beside 25 and 26, labelled
      as such.
+  Every phase but [mesh*] and the [reloc] boot step runs the step through
+  the drivers' step graph.
   Each path's kernel launches are counted around its run (the CLI runs and
   the evaluations report theirs from their processes); the kernels line
   sums them.
@@ -145,15 +159,16 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from legoloam_tpu_torch import DEFAULT
 from legoloam_tpu_torch.config import REFERENCE, for_sensor
 from legoloam_tpu_torch.models import (fusion, loopclosure, mapping,
                                        odometry, pipeline, posegraph,
-                                       relocalize)
+                                       relocalize, step_graph)
 from legoloam_tpu_torch.ops import (_native, ccl_cuda, deskew, features,
                                     features_cuda, icp, knn_cuda, projection,
-                                    se3, segmentation, voxel)
+                                    se3, segmentation, segments, voxel)
 from legoloam_tpu_torch.ops.se3 import Pose, transform_points
 from legoloam_tpu_torch.parallel import mapping_dist
 from legoloam_tpu_torch.parallel import mesh as mesh_mod
@@ -261,15 +276,32 @@ LONG_TPU = {
 # process each keep a core busy meanwhile).
 PARITY_THREADS = 2
 CHILD_TIMEOUT_S = 600
+# [graph]: the step's captured graphs against its eager body, fused
+# positions in m (bitwise is expected), and the CG chunk sizes timed on the
+# loop lap's first accepted attempt.
+GRAPH_POS_TOL = 1e-5
+PCG_CHUNKS = (1, 2, 4, 8)
 
 
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(f"chip_smoke: FAIL: {msg}\n")
     sys.exit(1)
+
+
+# Every line ``log`` prints is also appended here (beside the checkout,
+# listed in .gitignore): the end of the output alone may not hold them all.
+LOG_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out", "chip_smoke.log")
 
 
 def log(msg: str):
     print(msg, flush=True)
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(msg + "\n")
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -711,11 +743,16 @@ class AttemptLog:
         self.rows = []
         self.first = None
 
-    def __call__(self, kf, loops, cfg, pg_cfg):
+    def __call__(self, kf, loops, cfg, pg_cfg, **kw):
         knn_k = _native.KERNELS["knn"]
         sync(kf.t.device)
+        if self.first is None:
+            # The store and factors as given: under the step graph they
+            # are its static buffers, which the attempt writes in place.
+            given = (type(kf)(*(a.clone() for a in kf)),
+                     type(loops)(*(a.clone() for a in loops)))
         n0, t0 = knn_k.launches, time.perf_counter()
-        out = self.fn(kf, loops, cfg, pg_cfg)
+        out = self.fn(kf, loops, cfg, pg_cfg, **kw)
         sync(kf.t.device)
         ms = (time.perf_counter() - t0) * 1e3
         diag = out[3]
@@ -724,30 +761,40 @@ class AttemptLog:
                           "candidate": cand, "closed": closed,
                           "fitness": float(diag.fitness)})
         if closed and self.first is None:
-            cur = int(kf.count) - 1
+            kf0, loops0 = given
+            cur = int(kf0.count) - 1
             self.first = {
-                "kf": type(kf)(*(a.clone() for a in kf)), "loops": loops,
-                "cur": loopclosure._world_cloud(kf, cur),
+                "kf": kf0, "loops": loops0,
+                "cur": loopclosure._world_cloud(kf0, cur),
                 "hist": loopclosure._history_cloud(
-                    kf, torch.tensor(cand, device=kf.t.device), cfg)}
+                    kf0, torch.tensor(cand, device=kf.t.device), cfg)}
         return out
 
 
 class CallTimer:
     """Stands in for ``fn`` while installed: host milliseconds of each
-    call, the card synchronised around it."""
+    call, the card synchronised around it, and the host reads the segment
+    runner (``rt=``) made in it; ``iters`` the ICP's iterations when ``fn``
+    returns an ``IcpResult``."""
 
     def __init__(self, fn):
         self.fn = fn
         self.ms = []
+        self.reads = []
+        self.iters = []
 
     def __call__(self, *args, **kwargs):
         dev = "cuda" if torch.cuda.is_available() else "cpu"
+        rt = kwargs.get("rt")
+        r0 = getattr(rt, "reads", 0)
         sync(dev)
         t0 = time.perf_counter()
         out = self.fn(*args, **kwargs)
         sync(dev)
         self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.reads.append(getattr(rt, "reads", 0) - r0)
+        if isinstance(out, icp.IcpResult):
+            self.iters.append(int(out.iters))
         return out
 
 
@@ -837,19 +884,21 @@ def imu_integral(poses):
                                        device=ts.device)))
 
 
-def imu_run(scans, integ, cfg, dev):
-    """``slam_scan_step`` with the IMU integral over ``scans`` (the
-    run_slam_sequence cadence); returns the fused positions."""
-    state = pipeline.init_slam_state(cfg, dev)
+def imu_run(scans, integ, cfg, dev, graph=True):
+    """The step with the IMU integral over ``scans`` through
+    ``step_graph.StepGraph`` (the run_slam_sequence cadence; ``graph``:
+    captured CUDA graphs on the card, else the eager body); returns the
+    fused positions and the final keyframe count."""
+    sg = step_graph.StepGraph(pipeline.init_slam_state(cfg, dev), cfg,
+                              graph=graph)
     integ = to_device(integ, dev)
     fused = []
     for k, s in enumerate(scans):
-        state, out = pipeline.slam_scan_step(
-            state, *(a.to(dev) for a in s), cfg, k * cfg.sensor.scan_period,
-            run_mapping=(k % cfg.mapping_every == 0), imu_integral=integ,
-            bootstrap=(k == 1))
+        out = sg.step(*(a.to(dev) for a in s), k * cfg.sensor.scan_period,
+                      run_mapping=(k % cfg.mapping_every == 0),
+                      imu_integral=integ, bootstrap=(k == 1))
         fused.append(out.fused_pose.t)
-    return torch.stack(fused)
+    return torch.stack(fused), int(sg.state.mapping.kf.count)
 
 
 def imu_stage_times(scans, integ, cfg, dev, n=12):
@@ -1243,20 +1292,20 @@ def parity_cfg(name):
 
 
 def drive(scans, cfg, dev, check=None):
-    """``slam_scan_step`` over ``scans`` at the mapping cadence, without the
-    scan-1 bootstrap (the drivers of tests/test_sensor_matrix.py and
-    tests/test_reference_preset.py); ``check(k, state, out)`` after each
-    scan.  Returns the fused positions and the final state."""
-    state = pipeline.init_slam_state(cfg, dev)
+    """The step over ``scans`` at the mapping cadence, without the scan-1
+    bootstrap (the drivers of tests/test_sensor_matrix.py and
+    tests/test_reference_preset.py), through ``step_graph.StepGraph``;
+    ``check(k, state, out)`` after each scan.  Returns the fused positions
+    and the final state."""
+    sg = step_graph.StepGraph(pipeline.init_slam_state(cfg, dev), cfg)
     fused = []
     for k, s in enumerate(scans):
-        state, out = pipeline.slam_scan_step(
-            state, *(a.to(dev) for a in s), cfg, k * cfg.sensor.scan_period,
-            run_mapping=(k % cfg.mapping_every == 0))
+        out = sg.step(*(a.to(dev) for a in s), k * cfg.sensor.scan_period,
+                      run_mapping=(k % cfg.mapping_every == 0))
         fused.append(out.fused_pose.t)
         if check is not None:
-            check(k, state, out)
-    return torch.stack(fused), state
+            check(k, sg.state, out)
+    return torch.stack(fused), sg.state
 
 
 def cpu_parity_child(in_path, out_path, threads):
@@ -1960,6 +2009,259 @@ def mesh_cli_phase(work, cfg, dev, card, s1, imu_path, ckpt, poses, paths):
 # Main
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# [graph]: the step as captured CUDA graphs against its eager body
+# ---------------------------------------------------------------------------
+
+class ReadCount(TorchDispatchMode):
+    """Counts the host reads (``aten._local_scalar_dense``) made while it
+    is on; a graph replay is not an operator and reads nothing itself."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.reads += 1
+        return func(*args, **(kwargs or {}))
+
+
+def graph_steps(sg, scans, cfg, latency=None, reads=None):
+    """The main path's cadence over ``scans`` through the step graph
+    ``sg``; returns the fused positions.  ``latency`` (a list): each step's
+    host ms, the card synchronised around it, and whether the step
+    captured a segment; ``reads`` (a list): each step's host reads."""
+    fused = []
+    for k, s in enumerate(scans):
+        n_segs = len(getattr(sg.rt, "segs", ()))
+        if latency is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        mode = ReadCount() if reads is not None else None
+        if mode is not None:
+            mode.__enter__()
+        try:
+            out = sg.step(*s, k * cfg.sensor.scan_period,
+                          run_mapping=(k % cfg.mapping_every == 0),
+                          bootstrap=(k == 1))
+        finally:
+            if mode is not None:
+                mode.__exit__(None, None, None)
+        if latency is not None:
+            torch.cuda.synchronize()
+            latency.append(((time.perf_counter() - t0) * 1e3,
+                            len(getattr(sg.rt, "segs", ())) > n_segs))
+        if reads is not None:
+            reads.append(mode.reads)
+        fused.append(out.fused_pose.t)
+    return torch.stack(fused)
+
+
+def idle_share(prof, window: str):
+    """1 - (the union of the device's kernel and memory intervals inside
+    the ``window`` record) / the window's wall time; with the number of
+    device intervals, the window's ms and the union's ms.  None when the
+    trace holds no device interval."""
+    evs = prof.events()
+    win = [e for e in evs if e.name == window
+           and e.device_type == torch.autograd.DeviceType.CPU]
+    if not win:
+        return None, 0, 0.0, 0.0
+    w0, w1 = win[0].time_range.start, win[0].time_range.end
+    # The window's own record has a device-side copy spanning its kernels:
+    # it is not device work.
+    iv = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1))
+                for e in evs
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name != window
+                and e.time_range.end > w0 and e.time_range.start < w1)
+    if not iv:
+        return None, 0, 0.0, 0.0
+    busy, (a, b) = 0.0, iv[0]
+    for c, d in iv[1:]:
+        if c > b:
+            busy, a, b = busy + (b - a), c, d
+        else:
+            b = max(b, d)
+    busy += b - a
+    return 1.0 - busy / (w1 - w0), len(iv), (w1 - w0) / 1e3, busy / 1e3
+
+
+def pct(v, q):
+    v = sorted(v)
+    return v[min(len(v) - 1, int(round(q * (len(v) - 1))))] if v else \
+        float("nan")
+
+
+def graph_phase(scans, cfg, dev, card, main_fused, main_kf):
+    """[graph]: the main path's scans through ``StepGraph`` — a first pass
+    that captures, then passes from a fresh state (``StepGraph.load``)
+    that replay — against the eager body (``graph=False``): fused
+    positions within GRAPH_POS_TOL and equal keyframes (and against
+    [main]'s); scans/s of both, per-scan latency (median, p99) of mapping
+    and non-mapping scans, host reads per scan, and the card's idle share
+    over a replayed pass (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def fresh():
+        return pipeline.init_slam_state(cfg, dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    sg = step_graph.StepGraph(fresh(), cfg)
+    _, t_capture = timed(lambda: graph_steps(sg, scans, cfg))
+    sg.load(fresh())
+    fused_g, t_g = timed(lambda: graph_steps(sg, scans, cfg))
+    kf_g = int(sg.state.mapping.kf.count)
+    se = step_graph.StepGraph(fresh(), cfg, graph=False)
+    fused_e, t_e = timed(lambda: graph_steps(se, scans, cfg))
+    kf_e = int(se.state.mapping.kf.count)
+    del se
+    gap = float((fused_g - fused_e).abs().max())
+    gap_main = float((main_fused.t - fused_e).abs().max())
+    mapping_scan = [k % cfg.mapping_every == 0 for k in range(len(scans))]
+
+    lat_g, reads_g, lat_e = [], [], []
+    sg.load(fresh())
+    graph_steps(sg, scans, cfg, latency=lat_g)
+    se = step_graph.StepGraph(fresh(), cfg, graph=False)
+    graph_steps(se, scans, cfg, latency=lat_e)
+    del se
+    sg.load(fresh())
+    graph_steps(sg, scans, cfg, reads=reads_g)
+
+    def split(v):
+        m = [x for x, is_m in zip(v, mapping_scan) if is_m]
+        o = [x for x, is_m in zip(v, mapping_scan) if not is_m]
+        return m, o
+
+    sg.load(fresh())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("graph window"):
+            graph_steps(sg, scans, cfg)
+            torch.cuda.synchronize()
+    idle, n_iv, win_ms, busy_ms = idle_share(prof, "graph window")
+    dev_ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.name != "graph window":
+            dev_ms[e.name] = dev_ms.get(e.name, 0.0) \
+                + (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
+    rm, ro = split(reads_g)
+    log(f"[graph] {len(scans)} main-path scans through StepGraph "
+        f"({len(sg.rt.segs)} segments captured, {sg.rt.replays} replays "
+        f"so far): capturing pass {len(scans) / t_capture:.2f} scans/s, "
+        f"replayed {len(scans) / t_g:.2f} scans/s, eager body "
+        f"{len(scans) / t_e:.2f} scans/s ({t_e / t_g:.2f}x); graph vs eager "
+        f"max fused position difference {gap:.3g} m ([main] vs eager "
+        f"{gap_main:.3g} m), keyframes {kf_g} / {kf_e} / [main] {main_kf} "
+        f"[{card}]")
+    for name, lat in (("graph", lat_g), ("eager", lat_e)):
+        caps = sum(c for _, c in lat)
+        lm, lo = split([ms if not c else None for ms, c in lat])
+        lm, lo = [x for x in lm if x is not None], \
+            [x for x in lo if x is not None]
+        log(f"[graph] per-scan latency, {name}, card synchronised around "
+            f"each step: mapping scans median {pct(lm, 0.5):.2f} ms, p99 "
+            f"{pct(lm, 0.99):.2f} ms (of {len(lm)}); other scans median "
+            f"{pct(lo, 0.5):.2f} ms, p99 {pct(lo, 0.99):.2f} ms (of "
+            f"{len(lo)}); {caps} steps captured a segment (left out, the "
+            f"slowest {max(ms for ms, _ in lat):.1f} ms) [{card}]")
+    log(f"[graph] host reads per scan (aten._local_scalar_dense): mapping "
+        f"scans {sorted(set(rm))}, other scans {sorted(set(ro))}")
+    log("[graph] device idle share over a replayed pass of "
+        f"{len(scans)} scans (torch.profiler, kernel and memory intervals "
+        f"against the window's wall time): "
+        + (f"{idle:.4f} ({n_iv} device intervals, busy {busy_ms:.1f} of "
+           f"{win_ms:.1f} ms)" if idle is not None
+           else "not measured (the trace held no device interval)")
+        + f" [{card}]")
+    log(f"[graph] device ms in that pass, {sum(dev_ms.values()):.1f} in all "
+        f"({len(dev_ms)} kernel names), the largest: " + "; ".join(
+            f"{name[:90]} {ms:.1f}" for name, ms in top) + f" [{card}]")
+    if not gap < GRAPH_POS_TOL or not gap_main < GRAPH_POS_TOL:
+        fail(f"graph: graph vs eager {gap:.3g} m, [main] vs eager "
+             f"{gap_main:.3g} m (>= {GRAPH_POS_TOL} m)")
+    if not kf_g == kf_e == main_kf:
+        fail(f"graph: keyframes {kf_g} / {kf_e} / {main_kf}")
+    if any(r != 0 for r in ro) or any(r > 1 for r in rm):
+        fail(f"graph: host reads per scan {reads_g}")
+    return len(scans) / t_g, len(scans) / t_e
+
+
+def attempt_graph_phase(first, lcfg, dev, card):
+    """[graph] on the loop lap's first accepted attempt: from copies of
+    the store and factors it was given, ``close_and_correct`` eagerly and
+    as captured graphs (a capturing call, then a replay from the same
+    inputs) for each CG chunk size of PCG_CHUNKS: equal closure flags and
+    corrected positions within GRAPH_POS_TOL; ms per attempt and per
+    pose-graph solve, and host reads per attempt and per solve."""
+    kf0, loops0 = first["kf"], first["loops"]
+    n = int(kf0.count)
+
+    def copy(tree):
+        return type(tree)(*(a.clone() for a in tree))
+
+    def attempt(rt, kf, loops):
+        timer = CallTimer(posegraph.optimize)
+        posegraph.optimize = timer
+        try:
+            torch.cuda.synchronize()
+            r0, t0 = rt.reads, time.perf_counter()
+            out = loopclosure.close_and_correct(kf, loops, lcfg.loop,
+                                                lcfg.posegraph, rt=rt)
+            torch.cuda.synchronize()
+        finally:
+            posegraph.optimize = timer.fn
+        return ((time.perf_counter() - t0) * 1e3, rt.reads - r0, out,
+                timer)
+
+    ms_e, reads_e, (k_e, _, _, d_e), t_e = attempt(
+        segments.Eager(), copy(kf0), copy(loops0))
+    default = posegraph.CHUNK
+    rows = []
+    try:
+        for c in PCG_CHUNKS:
+            posegraph.CHUNK = c
+            rt = step_graph.GraphRunner(dev)
+            kf, loops = copy(kf0), copy(loops0)
+            ms_c, _, _, _ = attempt(rt, kf, loops)
+            for dst, src in ((kf, kf0), (loops, loops0)):
+                for a, b in zip(dst, src):
+                    a.copy_(b)
+            ms_g, reads_g, (k_g, _, _, d_g), t_g = attempt(rt, kf, loops)
+            gap = float((k_g.t[:n] - k_e.t[:n]).abs().max())
+            rows.append((c, ms_c, ms_g, t_g.ms[0] if t_g.ms else math.nan,
+                         reads_g, t_g.reads[0] if t_g.reads else 0, gap,
+                         bool(d_g.closed)))
+            del rt, kf, loops
+    finally:
+        posegraph.CHUNK = default
+    log(f"[graph] loop lap's first accepted attempt, eager body: "
+        f"{ms_e:.1f} ms, pose-graph solve "
+        f"{t_e.ms[0] if t_e.ms else math.nan:.1f} ms, host reads {reads_e} "
+        f"(ICP chunks of {icp.CHUNK}, CG chunks of {default}) [{card}]")
+    for c, ms_c, ms_g, solve, reads, solve_reads, gap, closed in rows:
+        log(f"[graph] same attempt as captured graphs, CG chunks of {c}: "
+            f"{ms_g:.1f} ms replayed ({ms_c:.1f} ms capturing), pose-graph "
+            f"solve {solve:.1f} ms with {solve_reads} host reads, "
+            f"{reads} host reads in the attempt; closed {closed} / "
+            f"{bool(d_e.closed)}, largest corrected keyframe position "
+            f"difference to the eager body {gap:.3g} m [{card}]")
+        if closed != bool(d_e.closed) or not gap < GRAPH_POS_TOL:
+            fail(f"graph: attempt with CG chunks of {c} disagrees with the "
+                 f"eager body ({closed} / {bool(d_e.closed)}, {gap:.3g} m)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure",
@@ -1967,6 +2269,8 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    if os.path.exists(LOG_PATH):
+        os.remove(LOG_PATH)
     cfg = DEFAULT
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -2061,10 +2365,13 @@ def main() -> int:
             fail(f"main path: kernel {name} was never launched")
     log(f"[main] {N_SCANS} scans in {t_run:.3f} s = {N_SCANS / t_run:.2f} "
         f"scans/s; fused ATE {ate:.4f} m, end error {end_err:.4f} m, "
-        f"{n_kf} keyframes, peak allocated {peak / 2**30:.3f} GiB, "
+        f"{n_kf} keyframes, peak allocated {peak / 2**30:.3f} GiB (the "
+        f"step graph's pool and buffers included; the eager step's, "
+        f"PERF.md: 0.655 GiB), "
         f"launches {launches} [{card}]")
     if ate >= 0.2:
         fail(f"main path: fused ATE {ate:.4f} m >= 0.2 m")
+    graph_phase(scans, cfg, dev, card, fused, n_kf)
     med = stage_times(scans, cfg, dev)
     log("[stages] median ms per call: " + ", ".join(
         f"{k} {v:.2f}" for k, v in med.items())
@@ -2236,7 +2543,12 @@ def main() -> int:
     dets = torch.linalg.det(kf_l.R[:n_l].double())
     with_cand = [r for r in alog.rows if r["candidate"] >= 0]
     accepted = [r for r in alog.rows if r["closed"]]
-    iters = sorted(r["knn"] - 1 for r in with_cand)
+    # The ICP runs on every attempt (frozen without a candidate, as the
+    # JAX package's), in order with the attempt log.
+    iters = sorted(n for n, r in zip(alog.icp.iters, alog.rows)
+                   if r["candidate"] >= 0)
+    icp_ms_cand = sum(ms for ms, r in zip(alog.icp.ms, alog.rows)
+                      if r["candidate"] >= 0)
 
     def median(v):
         return sorted(v)[len(v) // 2] if v else float("nan")
@@ -2251,8 +2563,13 @@ def main() -> int:
         f"{median([r['ms'] for r in accepted]):.1f} accepted (pose-graph "
         f"solve included), {median([r['ms'] for r in alog.rows]):.1f} over "
         f"all; of it ms per ICP median {median(alog.icp.ms):.1f} "
-        f"({sum(alog.icp.ms) / max(sum(iters), 1):.2f} per iteration), per "
-        f"pose-graph solve median {median(alog.solve.ms):.1f}; K3 launches "
+        f"({icp_ms_cand / max(sum(iters), 1):.2f} per iteration with a "
+        f"candidate), per "
+        f"pose-graph solve median {median(alog.solve.ms):.1f}; host reads "
+        f"per ICP median {median(alog.icp.reads)} (chunks of "
+        f"{icp.CHUNK}), per solve median {median(alog.solve.reads)} (CG "
+        f"chunks of {posegraph.CHUNK}, {lcfg.posegraph.gn_iters} GN "
+        f"steps); K3 launches "
         f"{path_launches['knn']} "
         f"({sum(r['knn'] for r in alog.rows)} in attempts); fused ATE "
         f"{ate_l:.4f} m; {n_l} keyframes; max |det R - 1| "
@@ -2269,11 +2586,11 @@ def main() -> int:
         fail("loop: a stored rotation has |det - 1| >= 1e-3")
     # The timers stand in for module attributes; a caller that bound the
     # function directly would bypass them and leave the readings empty.
-    if (len(alog.icp.ms), len(alog.solve.ms)) != (len(with_cand),
+    if (len(alog.icp.ms), len(alog.solve.ms)) != (len(alog.rows),
                                                   len(accepted)):
         fail(f"loop: {len(alog.icp.ms)} ICP and {len(alog.solve.ms)} solve "
-             f"timings for {len(with_cand)} attempts with a candidate and "
-             f"{len(accepted)} accepted")
+             f"timings for {len(alog.rows)} attempts and {len(accepted)} "
+             f"accepted")
 
     # A resumed session on the loop run's map: fresh odometry, the robot
     # boots at rest where the run ended (a rigid scan at the end of the
@@ -2303,10 +2620,12 @@ def main() -> int:
         knn_timings(f"{name} {q.shape[0]} x {r.shape[0]} 1-NN ungated",
                     q, qv, r, rv, 1, None, card, sessions=6)
     H = torch.randn(3, 3, generator=torch.Generator().manual_seed(3)).to(dev)
-    log(f"[icp] 3x3 rotation (icp.kabsch_rotation, torch.linalg.svd): "
+    log(f"[icp] 3x3 rotation (icp.kabsch_rotation, Horn's quaternion on a "
+        f"5-sweep Jacobi, eager): "
         f"{time_ms(lambda: icp.kabsch_rotation(H), 200):.4f} ms a call "
         f"[{card}]")
 
+    attempt_graph_phase(alog.first, lcfg, dev, card)
     (cg, cc), (fg, fc), pos_gap, cpu_s = attempt_card_vs_cpu(
         alog.first, lcfg, dev)
     fit_rel = abs(fg - fc) / max(abs(fc), 1e-30)
@@ -2359,10 +2678,19 @@ def main() -> int:
 
     # 9. The IMU path over the main-path world.
     integ = imu_integral(poses)
-    fused_i, paths["imu"] = counted(lambda: imu_run(scans, integ, cfg, dev))
+    (fused_i, kf_i), paths["imu"] = counted(
+        lambda: imu_run(scans, integ, cfg, dev))
     ate_i = float(metrics.ate_rmse(fused_i, gt))
-    f_cpu = imu_run([tuple(a.cpu() for a in s) for s in first], integ, cfg,
-                    "cpu")
+    f_cpu, _ = imu_run([tuple(a.cpu() for a in s) for s in first], integ,
+                       cfg, "cpu")
+    # [graph] on the IMU path: the captured graphs against the eager body.
+    fused_ie, kf_ie = imu_run(scans, integ, cfg, dev, graph=False)
+    gap_ge = float((fused_i - fused_ie).abs().max())
+    log(f"[graph] IMU path, {N_SCANS} scans: graph vs eager max fused "
+        f"position difference {gap_ge:.3g} m, keyframes {kf_i} / {kf_ie}")
+    if not gap_ge < GRAPH_POS_TOL or kf_i != kf_ie:
+        fail(f"graph: IMU path graph vs eager {gap_ge:.3g} m, keyframes "
+             f"{kf_i} / {kf_ie}")
     gap_i = float((fused_i[:N_PARITY_SCANS].cpu() - f_cpu).abs().max())
     med_i = imu_stage_times(scans, integ, cfg, dev)
     log(f"[imu] {N_SCANS} scans: fused ATE {ate_i:.4f} m; first "

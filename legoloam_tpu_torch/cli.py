@@ -162,7 +162,7 @@ def run(args, dev, mesh=None):
     import torch
 
     from .config import DEFAULT, SENSORS
-    from .models import pipeline
+    from .models import pipeline, step_graph
     from .ops import _native, deskew
     from .ops.se3 import Pose
     from .utils import checkpoint, export, io as lio, profiling, synthetic
@@ -227,6 +227,10 @@ def run(args, dev, mesh=None):
     else:
         state = backend.init_state(cfg, dev)
 
+    # The step: captured CUDA graphs on the card with the single-device
+    # backend, the eager body on the CPU and on a mesh.
+    sg = step_graph.StepGraph(state, cfg, backend)
+    del state
     imu_seq = lio.ImuSequence.from_file(args.imu) if args.imu else None
     dumper = DebugDumper(args.debug_dump, every=args.debug_every)
 
@@ -250,31 +254,34 @@ def run(args, dev, mesh=None):
                         imu_integral=integ,
                         bootstrap=(k == 1
                                    and (args.relocalize or not args.resume)))
-            state, out = pipeline.slam_scan_step(state, *scan, cfg, t,
-                                                 backend=backend, **step)
+            out = sg.step(*scan, t, **step)
         if k == 0 and args.relocalize:
-            state, rdiag = backend.relocalize(state, cfg)
+            state, rdiag = backend.relocalize(sg.state, cfg)
+            sg.load(state)
             if lead:
                 print(f"[reloc] accepted={bool(rdiag.accepted)} "
                       f"candidate={int(rdiag.candidate)} "
                       f"fitness={float(rdiag.fitness):.4f}")
-            out = out._replace(fused_pose=state.mapping.t_aft)
+            out = out._replace(fused_pose=Pose(
+                state.mapping.t_aft.R.clone(), state.mapping.t_aft.t.clone()))
+            del state
         fused_R.append(out.fused_pose.R)
         fused_t.append(out.fused_pose.t)
         times.append(t)
         if lead and dumper.due(k):
             with timer.stage("debug_dump"):
-                dumper.maybe_dump(k, scan, cfg, state=state, diag=out.diag)
+                dumper.maybe_dump(k, scan, cfg, state=sg.state,
+                                  diag=out.diag)
         if args.checkpoint_every and (k + 1) % args.checkpoint_every == 0:
             with timer.stage("checkpoint"):
-                snap = backend.snapshot(state, cfg)
+                snap = backend.snapshot(sg.state, cfg)
                 if lead:
                     checkpoint.save_state(
                         os.path.join(args.out, "checkpoint.npz"), snap)
                 del snap
         if args.map_every and (k + 1) % args.map_every == 0:
             with timer.stage("map_export"):
-                snap = backend.snapshot(state, cfg)
+                snap = backend.snapshot(sg.state, cfg)
                 kf_now = snap.mapping.kf if lead else None
                 del snap
                 if lead and int(kf_now.count):
@@ -283,7 +290,8 @@ def run(args, dev, mesh=None):
                         os.path.join(args.out, "global_map.pcd"), pts, val)
         if lead and (k + 1) % 100 == 0:
             print(f"[{NAME}] {k + 1} scans, "
-                  f"{int(state.mapping.kf.count)} keyframes", file=sys.stderr)
+                  f"{int(sg.state.mapping.kf.count)} keyframes",
+                  file=sys.stderr)
             # No silent caps: warn the moment any fixed cap drops data, and
             # decimate the keyframe store before it saturates.
             fo = out.diag.feat_overflow.cpu().numpy()
@@ -292,33 +300,35 @@ def run(args, dev, mesh=None):
                       "[sharp,less_sharp,flat,less_flat,outlier]="
                       f"{fo.tolist()} — raise FeatureConfig caps",
                       file=sys.stderr)
-            if int(state.loops.dropped):
-                print(f"warning: {int(state.loops.dropped)} loop factors "
+            if int(sg.state.loops.dropped):
+                print(f"warning: {int(sg.state.loops.dropped)} loop factors "
                       f"dropped (cap/decimation) — raise "
                       f"PoseGraphConfig.max_loop_factors", file=sys.stderr)
-            if int(state.mapping.kf.overflow):
+            if int(sg.state.mapping.kf.overflow):
                 print(f"warning: keyframe store overflowed "
-                      f"{int(state.mapping.kf.overflow)} times — raise "
+                      f"{int(sg.state.mapping.kf.overflow)} times — raise "
                       f"max_keyframes or decimate more aggressively",
                       file=sys.stderr)
         if (k + 1) % 100 == 0:
             # The mesh path, as the JAX package's, keeps no submap cache
             # and never decimates.
-            cache = getattr(state.mapping, "cache", None)
+            cache = getattr(sg.state.mapping, "cache", None)
             if cache is not None and int(cache.voxel_overflow):
                 print(f"warning: submap voxel caps dropped "
                       f"{int(cache.voxel_overflow)} voxels "
                       f"— raise submap_*_cap", file=sys.stderr)
-            state, did = backend.maybe_decimate(state, cfg, margin=48)
+            state, did = backend.maybe_decimate(sg.state, cfg, margin=48)
             if did:
+                sg.load(state)
                 print(f"[{NAME}] keyframe store decimated to "
                       f"{int(state.mapping.kf.count)} "
                       f"(cap {cfg.mapping.max_keyframes})", file=sys.stderr)
+            del state
     if loader is not None:
         loader.close()
 
     # --- outputs ---
-    state = backend.snapshot(state, cfg)
+    state = backend.snapshot(sg.state, cfg)
     if not lead:
         return 0
     export.write_trajectory_tum(

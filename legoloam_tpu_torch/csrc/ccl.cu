@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kMinTileW = 64;  // columns per tile, at least
@@ -219,9 +221,8 @@ extern "C" int ccl_launch(const void* seed, const void* conn_h,
   const size_t smem = 2 * static_cast<size_t>(n) * w * sizeof(int);
   if (n < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ccl_local, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    cudaError_t e = raise_smem_limit(
+        reinterpret_cast<const void*>(ccl_local), static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const auto* sd = static_cast<const uint8_t*>(seed);

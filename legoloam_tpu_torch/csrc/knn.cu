@@ -57,6 +57,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kTQ = 32;      // queries per block: one per lane
@@ -423,10 +425,8 @@ int launch(const float* q, const uint8_t* qv, const float* r,
            const uint8_t* rv, float* lo, float* hi, float* d, int64_t* i,
            unsigned long long* visited, int q_n, int r_n, float gate_sq,
            int use_gate, cudaStream_t s) {
-  // Set on every call: the attribute belongs to the current device.
-  cudaError_t e = cudaFuncSetAttribute(
-      knn_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
+  cudaError_t e = raise_smem_limit(
+      reinterpret_cast<const void*>(knn_kernel<K>), static_cast<int>(kSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_chunks = (r_n + kRC - 1) / kRC;
   const int tiles = (q_n + kTQ - 1) / kTQ;

@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kColFill = 1000000;  // column value beyond the ring (as JAX)
@@ -471,8 +473,8 @@ extern "C" int picks_launch(const void* rng, const void* col,
     break;
   }
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t err =
+        raise_smem_limit(reinterpret_cast<const void*>(fn), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   fn<<<n, threads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -5,7 +5,7 @@ relocalization earns its keep.
 Session 1 maps a lap of the ring world and is checkpointed (a round trip
 through ``utils/checkpoint``).  Session 2 restarts the robot somewhere else
 on the mapped territory with the belief still at the session-1 end, and runs
-twice through the ordinary ``slam_scan_step`` driver:
+twice through the ordinary step driver (``step_graph.StepGraph``):
 
   A. no relocalization: the pipeline continues from the stale belief;
   B. ``relocalize_slam_state`` on the first scan, then the same driver.
@@ -77,7 +77,7 @@ def main(argv=None):
     from ..cli import small_preset
     from ..config import DEFAULT
     from ..device import resolve_device
-    from ..models import pipeline, relocalize
+    from ..models import pipeline, relocalize, step_graph
     from ..ops.se3 import Pose
     from ..utils import checkpoint, metrics, synthetic
 
@@ -118,12 +118,12 @@ def main(argv=None):
                   flush=True)
         else:
             print(f"[session 1] {args.s1} scans...", flush=True)
-            state = template()
+            sg = step_graph.StepGraph(template(), cfg)
             sched = pipeline.LoopScheduler(cfg)
             t0 = time.perf_counter()
             for k in range(args.s1):
-                state, out = pipeline.slam_scan_step(
-                    state, *scan(k), cfg, 0.1 * k,
+                out = sg.step(
+                    *scan(k), 0.1 * k,
                     run_mapping=(k % cfg.mapping_every == 0),
                     run_loop=sched.due(0.1 * k), bootstrap=(k == 1))
                 if (k + 1) % 200 == 0:
@@ -131,13 +131,14 @@ def main(argv=None):
                     print(f"  scan {k + 1}/{args.s1} "
                           f"({(k + 1) / (time.perf_counter() - t0):.1f} "
                           f"scans/s)", flush=True)
+            state = sg.state
             print(f"[session 1] done: {int(state.mapping.kf.count)} "
                   f"keyframes, {int(state.loops.count)} closures",
                   flush=True)
             # The resume path carries the map: a checkpoint round trip.
             checkpoint.save_state(path, state)
             kf1 = int(state.mapping.kf.count)
-            del state
+            del state, sg
         restored = checkpoint.load_state(path, template())
     if kf1 is not None and int(restored.mapping.kf.count) != kf1:
         raise RuntimeError("the checkpoint round trip lost keyframes")
@@ -154,27 +155,30 @@ def main(argv=None):
     reloc_diag = {}
 
     def session2(use_reloc: bool):
-        st = template()._replace(mapping=_clone(restored.mapping),
-                                 loops=_clone(restored.loops))
+        sg = step_graph.StepGraph(template()._replace(
+            mapping=_clone(restored.mapping), loops=_clone(restored.loops)),
+            cfg)
         sched2 = pipeline.LoopScheduler(cfg)
         fused = []
         t_off = args.s1 * 0.1 + 600.0      # resume later in data time
         for j in range(args.s2):
             # Boot at rest: the first scan is rigid (no twist estimate
             # exists yet to de-skew a moving one).
-            st, out = pipeline.slam_scan_step(
-                st, *scan(k0 + j, rigid=(j == 0)), cfg, t_off + 0.1 * j,
+            out = sg.step(
+                *scan(k0 + j, rigid=(j == 0)), t_off + 0.1 * j,
                 run_mapping=(j % cfg.mapping_every == 0) and j > 0,
                 run_loop=sched2.due(t_off + 0.1 * j), bootstrap=(j == 1))
             if j == 0 and use_reloc:
-                st, diag = relocalize.relocalize_slam_state(st, cfg)
+                st, diag = relocalize.relocalize_slam_state(sg.state, cfg)
+                sg.load(st)
                 reloc_diag.update(accepted=bool(diag.accepted),
                                   candidate=int(diag.candidate),
                                   fitness=float(diag.fitness))
                 print(f"  reloc: accepted={reloc_diag['accepted']} "
                       f"candidate={reloc_diag['candidate']} "
                       f"fitness={reloc_diag['fitness']:.4f}", flush=True)
-                out = out._replace(fused_pose=st.mapping.t_aft)
+                out = out._replace(fused_pose=Pose(
+                    st.mapping.t_aft.R.clone(), st.mapping.t_aft.t.clone()))
             fused.append(out.fused_pose.t)
         fused = torch.stack(fused).cpu().numpy()
         # Scan 0 is the pre-relocalization output in run A: both runs are
@@ -186,7 +190,7 @@ def main(argv=None):
                                          torch.from_numpy(gt2[1:])))
         drift = float(np.linalg.norm(fused[-1] - gt2[-1]))
         return ate_abs, ate_umy, drift, \
-            int(st.loops.count) - int(restored.loops.count)
+            int(sg.state.loops.count) - int(restored.loops.count)
 
     t0 = time.perf_counter()
     print("[session 2/A] no relocalization...", flush=True)

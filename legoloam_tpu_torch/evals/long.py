@@ -72,7 +72,7 @@ def main(argv=None):
     from ..cli import small_preset
     from ..config import DEFAULT
     from ..device import resolve_device
-    from ..models import pipeline
+    from ..models import pipeline, step_graph
     from ..ops import deskew
     from ..ops.se3 import Pose
     from ..utils import metrics, synthetic
@@ -120,14 +120,14 @@ def main(argv=None):
             noise_sigma=args.noise, generator=gen,
             next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
 
-    state = pipeline.init_slam_state(cfg, dev)
+    sg = step_graph.StepGraph(pipeline.init_slam_state(cfg, dev), cfg)
     sched = pipeline.LoopScheduler(cfg)
     fused, odoms = [], []
     fused_R, odom_R, mapped_t = [], [], []
     t0 = time.perf_counter()
     for k in range(n):
-        state, out = pipeline.slam_scan_step(
-            state, *scan(k), cfg, 0.1 * k,
+        out = sg.step(
+            *scan(k), 0.1 * k,
             run_mapping=(k % cfg.mapping_every == 0),
             run_loop=sched.due(0.1 * k),
             imu_integral=integ, bootstrap=(k == 1))
@@ -135,8 +135,9 @@ def main(argv=None):
             float(out.fused_pose.t[0])        # host sync
             print(f"  scan {k + 1}/{n}  ({(k + 1) / (time.perf_counter() - t0):.1f} scans/s incl. raycast)",
                   flush=True)
-            state, did = pipeline.maybe_decimate(state, cfg, margin=48)
+            state, did = pipeline.maybe_decimate(sg.state, cfg, margin=48)
             if did:
+                sg.load(state)
                 print(f"  [decimate] keyframe store -> "
                       f"{int(state.mapping.kf.count)} kf", flush=True)
         fused.append(out.fused_pose.t)
@@ -145,6 +146,7 @@ def main(argv=None):
             fused_R.append(out.fused_pose.R)
             odom_R.append(out.odom_pose.R)
             mapped_t.append(out.mapped_pose.t)
+    state = sg.state
     fused = torch.stack(fused).cpu().numpy()
     odoms = torch.stack(odoms).cpu().numpy()
     # The estimate frame is the scan-0 sensor frame: rebase ground truth by

@@ -52,7 +52,7 @@ def main(argv=None):
     from ..cli import small_preset
     from ..config import DEFAULT
     from ..device import resolve_device
-    from ..models import pipeline
+    from ..models import pipeline, step_graph
     from ..ops import se3
     from ..ops.se3 import Pose
     from ..utils import synthetic
@@ -81,15 +81,15 @@ def main(argv=None):
             next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
 
     def run(cfg, state, sched, k_range):
+        sg = step_graph.StepGraph(state, cfg)
         fused = []
         for k in k_range:
-            state, out = pipeline.slam_scan_step(
-                state, *scan(k), cfg, 0.1 * k,
-                run_mapping=(k % cfg.mapping_every == 0),
-                run_loop=sched.due(0.1 * k))
+            out = sg.step(*scan(k), 0.1 * k,
+                          run_mapping=(k % cfg.mapping_every == 0),
+                          run_loop=sched.due(0.1 * k))
             fused.append(out.fused_pose.t)
         fused = torch.stack(fused).cpu().numpy()
-        return state, np.linalg.norm(fused - gt[list(k_range)], axis=1)
+        return sg.state, np.linalg.norm(fused - gt[list(k_range)], axis=1)
 
     cfg_off = cfg_for(False)
     state0, pre_errs = run(cfg_off, pipeline.init_slam_state(cfg_off, dev),

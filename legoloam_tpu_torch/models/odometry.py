@@ -17,6 +17,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..config import OdometryConfig
+from ..device import const
 from ..ops import lm, se3
 from ..ops.features import FeatureCloud, ScanFeatures
 from ..ops.se3 import Pose
@@ -168,13 +169,13 @@ def _lm_loop(cloud: FeatureCloud, last: FeatureCloud, xi0, cfg,
              find_corr, dof: tuple, is_line: bool):
     """One of the two LM solves, unrolled with a convergence freeze mask."""
     dev = xi0.device
-    dof_idx = torch.tensor(dof, device=dev)
+    dof_idx = const(dof, dev, torch.int64)
     deg = lm.identity_degeneracy(3, dev)
     xi = xi0
-    done = torch.tensor(False, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
     corr = None
-    n_used = torch.tensor(0, dtype=torch.int32, device=dev)
-    iters = torch.tensor(0, dtype=torch.int32, device=dev)
+    n_used = torch.zeros((), dtype=torch.int32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
     for i in range(cfg.max_iterations):
         p_warped = _warp_to_start(xi, cloud)
         if i % cfg.corr_refresh_every == 0 or corr is None:

@@ -83,7 +83,7 @@ def relocalize(kf: KeyframeStore, scan_pts, scan_valid, prior: Pose,
         res = icp_ops.icp(se3.transform_points(T0, pts), val, hist_pts,
                           hist_val, Pose.identity(device=dev),
                           max_corr_dist=cfg.icp_max_corr_dist,
-                          max_iters=iters, eps=cfg.icp_eps)
+                          max_iters=iters, eps=cfg.icp_eps, chunk=1)
         fit = torch.where(res.has_converged, res.fitness, inf)
         return fit, se3.compose(res.pose, T0)
 

@@ -57,8 +57,10 @@ SIGNATURES = {
 
 
 class Kernel:
-    """One hand-written kernel: its name and the number of times its wrapper
-    launched it (a plain count, read and reset by ``chip_smoke.py``)."""
+    """One hand-written kernel: its name and the number of times it was
+    launched (a plain count, read and reset by ``chip_smoke.py``): each
+    wrapper call that launches it adds one, and each replay of a CUDA graph
+    adds the launches the graph captured (``models/step_graph.py``)."""
 
     def __init__(self, name: str, source: str, replaces: str):
         self.name = name
@@ -79,6 +81,17 @@ def register(name: str, source: str, replaces: str) -> Kernel:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def counts() -> dict[str, int]:
+    """Every kernel's launch count, by name."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def add_counts(delta: dict[str, int]) -> None:
+    """Add launches made outside a wrapper call (a graph replay)."""
+    for name, n in delta.items():
+        KERNELS[name].launches += n
 
 
 _lib = None

@@ -101,7 +101,7 @@ def label_propagation_plain(seed_mask, conn_h, conn_v, max_iters: int):
         changed = bool(torch.any(new != labels))
         labels, sweeps = new, sweeps + 1
 
-    tail = torch.tensor([big], dtype=torch.int32, device=dev)
+    tail = torch.full((1,), big, dtype=torch.int32, device=dev)
     flat = torch.cat([labels.reshape(-1), tail])
     flat = flat[flat[:n_cells].long()]
     flat = torch.cat([flat, tail])[flat.long()]

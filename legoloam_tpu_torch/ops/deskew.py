@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import const
 from .se3 import euler_zyx_to_mat, rotate_vec
 
 GRAVITY = 9.81
@@ -51,7 +52,7 @@ def integrate_imu(w: ImuWindow) -> ImuIntegral:
     longer than 0.1 s suppressed by zeroing dt (featureAssociation.cpp:
     413-428)."""
     R = euler_zyx_to_mat(w.rpy[:, 0], w.rpy[:, 1], w.rpy[:, 2])
-    g = torch.tensor([0.0, 0.0, -GRAVITY], device=w.acc.device)
+    g = const((0.0, 0.0, -GRAVITY), w.acc.device)
     a_world = rotate_vec(R, w.acc) + g
     dt = torch.diff(w.time, prepend=w.time[:1])
     dt = torch.where(w.valid & (dt > 0) & (dt < 0.1), dt, 0.0)[:, None]

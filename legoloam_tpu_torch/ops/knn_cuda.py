@@ -27,8 +27,8 @@ from __future__ import annotations
 import torch
 
 from . import _native
+from . import voxel
 from .voxel import BIG, recentre
-from .voxel import knn as knn_plain
 
 KERNEL = _native.register(
     "knn", "legoloam_tpu_torch/csrc/knn.cu",
@@ -41,6 +41,18 @@ MAX_K = 8
 # Tiling of ``tile_pairs``: the first kernel's 64-query tiles and
 # 256-reference chunks.
 TILE_TQ, TILE_RC = 64, 256
+
+
+def knn_plain(query, q_valid, ref, r_valid, k: int):
+    """Plain version of K3: the JAX package's k-NN (``voxel.knn``); with
+    no valid query, the contract's (1e30, 0) rows without a search, as the
+    kernel skips every tile then (a search after an iterative solve
+    stopped)."""
+    if not bool(torch.any(q_valid)):
+        return (torch.full((query.shape[0], k), BIG, device=query.device),
+                torch.zeros((query.shape[0], k), dtype=torch.int64,
+                            device=query.device))
+    return voxel.knn(query, q_valid, ref, r_valid, k)
 
 
 def chunk_boxes(ref: torch.Tensor, r_valid: torch.Tensor, rc: int = RC):

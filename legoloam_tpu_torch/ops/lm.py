@@ -25,17 +25,22 @@ class DegeneracyState(NamedTuple):
 
 def identity_degeneracy(d: int, device=None) -> DegeneracyState:
     return DegeneracyState(P=torch.eye(d, device=device),
-                           is_degenerate=torch.tensor(False, device=device))
+                           is_degenerate=torch.zeros((), dtype=torch.bool,
+                                                     device=device))
 
 
 def analyze_degeneracy(AtA: torch.Tensor, eig_thresh: float
                        ) -> DegeneracyState:
-    """Eigen-decompose the normal matrix (closed form for 3x3) and build the
-    projection that zeroes under-constrained directions."""
+    """Eigen-decompose the normal matrix (closed form for 3x3, Jacobi for
+    6x6) and build the projection that zeroes under-constrained
+    directions."""
     if AtA.shape[-1] == 3:
         evals, evecs = smallalg.eigh3x3(AtA)
     else:
-        evals, evecs = torch.linalg.eigh(AtA)
+        # Fixed-sweep Jacobi (unordered, which the projection below does
+        # not need): the library eigh reads its error flag back to the
+        # host, which a CUDA graph cannot hold.
+        evals, evecs = smallalg.jacobi_eigen(AtA, sweeps=5)
     keep = evals >= eig_thresh
     V = evecs.T
     V2 = torch.where(keep[:, None], V, torch.zeros_like(V))

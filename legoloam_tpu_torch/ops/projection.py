@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import SensorConfig
+from ..device import at
 
 _DEG = 180.0 / math.pi
 _KEY_EMPTY = 0x7FFFFFFF
@@ -42,8 +43,8 @@ def _point_orientations(points, valid, n_points):
     vi = valid.to(torch.int32)
     first = torch.argmax(vi)
     last = n_points - 1 - torch.argmax(torch.flip(vi, (0,)))
-    start_ori = yaw[first]
-    end_ori = yaw[last] + 2.0 * math.pi
+    start_ori = at(yaw, first)
+    end_ori = at(yaw, last) + 2.0 * math.pi
     end_ori = torch.where(end_ori - start_ori > 3.0 * math.pi,
                           end_ori - 2.0 * math.pi, end_ori)
     end_ori = torch.where(end_ori - start_ori < math.pi,

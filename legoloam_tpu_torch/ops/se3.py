@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import const
+
 
 class Pose(NamedTuple):
     """Rigid transform p_world = R @ p_local + t, broadcastable over batch."""
@@ -234,12 +236,12 @@ _SWAP = ((0.0, 1.0, 0.0), (0.0, 0.0, 1.0), (1.0, 0.0, 0.0))
 
 def lidar_to_camera(p: Pose) -> Pose:
     """Express a lidar-frame pose in the reference's camera convention."""
-    S = torch.tensor(_SWAP, dtype=p.t.dtype, device=p.t.device)
+    S = const(sum(_SWAP, ()), p.t.device, p.t.dtype).reshape(3, 3)
     return Pose(S @ p.R @ S.T, torch.einsum("ij,...j->...i", S, p.t))
 
 
 def camera_to_lidar(p: Pose) -> Pose:
-    S = torch.tensor(_SWAP, dtype=p.t.dtype, device=p.t.device)
+    S = const(sum(_SWAP, ()), p.t.device, p.t.dtype).reshape(3, 3)
     return Pose(S.T @ p.R @ S, torch.einsum("ji,...j->...i", S, p.t))
 
 

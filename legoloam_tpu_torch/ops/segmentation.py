@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SegmentationConfig, SensorConfig
+from ..device import const
 from .ccl_cuda import label_propagation
 from .projection import RangeImage
 
@@ -54,11 +55,11 @@ def _connectivity(img: RangeImage, sensor: SensorConfig,
                   cfg: SegmentationConfig):
     """4-neighbour angle-predicate connectivity with column wraparound
     (imageProjection.cpp:411-423): (conn_h (N, H), conn_v (N-1, H))."""
-    f32 = dict(dtype=torch.float32, device=img.rng.device)
-    theta = torch.deg2rad(torch.tensor(cfg.segment_theta_deg, **f32))
+    dev = img.rng.device
+    theta = torch.deg2rad(const(cfg.segment_theta_deg, dev))
 
     def edge(a_rng, b_rng, alpha):
-        alpha = torch.tensor(alpha, **f32)
+        alpha = const(alpha, dev)
         d1 = torch.maximum(a_rng, b_rng)
         d2 = torch.minimum(a_rng, b_rng)
         ang = torch.atan2(d2 * torch.sin(alpha), d1 - d2 * torch.cos(alpha))

@@ -1,0 +1,94 @@
+"""Segments: how the per-scan step's code is cut for CUDA graphs.
+
+A function that the step runs is written as calls of ``rt.seg(key, fn,
+*args, into=...)`` — a piece of straight-line tensor code, no host read
+inside — separated by ``rt.read(x, what)``, the host value of a 0-d tensor
+that decides what runs next (which submap branch, whether a chunk of an
+iterative solve was the last).  ``EAGER`` runs each segment as a plain call
+and reads with ``.item()``.  ``models/step_graph.py`` runs the same code
+with each segment a captured CUDA graph over static buffers, so the step's
+logic has one copy.
+
+A segment's ``args`` and its result are trees of tensors (NamedTuples,
+tuples, None).  Under a graph runner every tensor of ``args`` must be a
+static buffer (the state, the step's inputs, or another segment's result),
+and the result is written into ``into`` (a tree of static buffers, None
+leaves allocating their own) before it is returned.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+
+class Eager:
+    """Segments as plain calls, decisions read back with ``.item()``;
+    ``reads`` counts the reads."""
+
+    def __init__(self):
+        self.reads = 0
+
+    def seg(self, key, fn: Callable, *args, into=None):
+        """``fn(*args)``; ``key`` names the segment (with every static
+        argument ``fn`` closes over) for a graph runner."""
+        return fn(*args)
+
+    def read(self, x: torch.Tensor, what: str = ""):
+        """The host value of the 0-d tensor ``x``; ``what`` names it."""
+        self.reads += 1
+        return x.item()
+
+
+EAGER = Eager()
+
+
+def leaves(tree) -> list:
+    """The tensors of a tree, depth first (None leaves skipped)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in leaves(v)]
+    raise TypeError(f"not a tensor tree: {type(tree)}")
+
+
+def map_tree(fn: Callable[[torch.Tensor], Any], tree):
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tree(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    raise TypeError(f"not a tensor tree: {type(tree)}")
+
+
+def bind(into, out):
+    """The static tree for a result ``out``: ``into``'s buffers where it
+    has them, fresh clones of ``out`` where ``into`` is None."""
+    if into is None:
+        return map_tree(lambda t: t.clone(), out)
+    if isinstance(into, torch.Tensor):
+        return into
+    if isinstance(into, tuple) and hasattr(into, "_fields"):
+        return type(into)(*(bind(a, b) for a, b in zip(into, out)))
+    return type(into)(bind(a, b) for a, b in zip(into, out))
+
+
+def copy_tree(dst, src) -> None:
+    """Copy every tensor of ``src`` into the same place of ``dst``; a
+    tensor that already is its destination is left alone (the keyframe
+    store, written in place), and a source that shares memory with another
+    destination is cloned first, so no copy reads what an earlier one
+    wrote."""
+    pairs = [(d, s) for d, s in zip(leaves(dst), leaves(src), strict=True)
+             if d is not s]
+    written = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in written
+              else s) for d, s in pairs]
+    for d, s in pairs:
+        d.copy_(s)

@@ -10,6 +10,8 @@ from typing import Tuple
 
 import torch
 
+from ..device import const
+
 
 def det3(A: torch.Tensor) -> torch.Tensor:
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
@@ -101,8 +103,7 @@ def eigh3x3(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric (..., 3, 3) eigendecomposition, ascending eigenvalues,
     eigenvectors as COLUMNS."""
     evals = eigvalsh3(A)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=A.dtype,
-                      device=A.device).expand(A.shape[:-1])
+    ex = const((1.0, 0.0, 0.0), A.device, A.dtype).expand(A.shape[:-1])
     v2 = _eigvec(A, evals[..., 2], ex)
     v0 = _eigvec(A, evals[..., 0], _perp(v2))
     v0 = v0 - torch.sum(v0 * v2, dim=-1, keepdim=True) * v2
@@ -133,7 +134,109 @@ def solve6_spd(A: torch.Tensor, b: torch.Tensor, eps: float = 1e-8
 def _perp(v: torch.Tensor) -> torch.Tensor:
     """Any unit vector perpendicular to unit v."""
     ax = torch.argmin(torch.abs(v), dim=-1)
-    e = torch.nn.functional.one_hot(ax, 3).to(v.dtype)
+    e = (ax[..., None] == torch.arange(3, device=v.device)).to(v.dtype)
     p = torch.linalg.cross(v, e)
     n = torch.linalg.norm(p, dim=-1, keepdim=True)
     return p / torch.clamp(n, min=1e-30)
+
+
+def _round_robin(n: int):
+    """The n-1 rounds of a round-robin tournament on n (even) indices, each
+    n/2 disjoint pairs (p, q), p < q: one parallel Jacobi sweep."""
+    idx = list(range(n))
+    rounds = []
+    for _ in range(n - 1):
+        rounds.append([tuple(sorted((idx[k], idx[n - 1 - k])))
+                       for k in range(n // 2)])
+        idx = [idx[0], idx[-1]] + idx[1:-1]
+    return rounds
+
+
+def jacobi_eigen(A: torch.Tensor, sweeps: int):
+    """Eigenvalues (unordered) and eigenvectors (columns, in the same order)
+    of a symmetric (n, n) matrix, n even, by parallel cyclic Jacobi: each
+    round rotates n/2 disjoint (p, q) planes at once, each rotation the
+    smaller angle that zeroes A[p, q]; ``sweeps`` sweeps of n-1 rounds.
+    No data-dependent control flow and no library solver (whose error
+    check reads back to the host), so it can run inside a CUDA graph."""
+    n = A.shape[-1]
+    dev, dt = A.device, A.dtype
+    V = torch.eye(n, dtype=dt, device=dev)
+    rounds = []
+    for pairs in _round_robin(n):
+        p = tuple(a for a, _ in pairs)
+        q = tuple(b for _, b in pairs)
+        # Flat positions of J's (p,p), (q,q), (p,q), (q,p) entries.
+        flat = tuple(a * n + a for a in p) + tuple(b * n + b for b in q) \
+            + tuple(a * n + b for a, b in pairs) \
+            + tuple(b * n + a for a, b in pairs)
+        rounds.append((const(p, dev, torch.int64), const(q, dev, torch.int64),
+                       const(flat, dev, torch.int64)))
+    for _ in range(sweeps):
+        for p, q, flat in rounds:
+            app, aqq, apq = A[p, p], A[q, q], A[p, q]
+            theta = 0.5 * torch.atan(2.0 * apq / (aqq - app))
+            theta = torch.where(apq == 0, torch.zeros_like(theta), theta)
+            c, s = torch.cos(theta), torch.sin(theta)
+            J = torch.zeros(n * n, dtype=dt, device=dev).index_put(
+                (flat,), torch.cat([c, c, s, -s])).reshape(n, n)
+            A = J.T @ A @ J
+            V = V @ J
+    return torch.diagonal(A), V
+
+
+# Horn's symmetric 4x4 N(H) as a linear map of H's 9 entries (row-major,
+# H[a, b] = S_ab): (entry of N's upper triangle, entry of H, coefficient).
+# The rotation of a unit quaternion (w, x, y, z) is a linear map of its 16
+# products q_a q_b: (product, entry of R, coefficient).
+_HORN_N = (
+    (0, 0, 1), (0, 4, 1), (0, 8, 1),               # N00 = Sxx + Syy + Szz
+    (1, 5, 1), (1, 7, -1),                         # N01 = Syz - Szy
+    (2, 6, 1), (2, 2, -1),                         # N02 = Szx - Sxz
+    (3, 1, 1), (3, 3, -1),                         # N03 = Sxy - Syx
+    (5, 0, 1), (5, 4, -1), (5, 8, -1),             # N11 = Sxx - Syy - Szz
+    (6, 1, 1), (6, 3, 1),                          # N12 = Sxy + Syx
+    (7, 6, 1), (7, 2, 1),                          # N13 = Szx + Sxz
+    (10, 0, -1), (10, 4, 1), (10, 8, -1),          # N22 = -Sxx + Syy - Szz
+    (11, 5, 1), (11, 7, 1),                        # N23 = Syz + Szy
+    (15, 0, -1), (15, 4, -1), (15, 8, 1),          # N33 = -Sxx - Syy + Szz
+)
+_HORN_R = (
+    (0, 0, 1), (5, 0, 1), (10, 0, -1), (15, 0, -1),   # w²+x²-y²-z²
+    (6, 1, 2), (3, 1, -2),                            # 2(xy - wz)
+    (7, 2, 2), (2, 2, 2),                             # 2(xz + wy)
+    (6, 3, 2), (3, 3, 2),                             # 2(xy + wz)
+    (0, 4, 1), (5, 4, -1), (10, 4, 1), (15, 4, -1),   # w²-x²+y²-z²
+    (11, 5, 2), (1, 5, -2),                           # 2(yz - wx)
+    (7, 6, 2), (2, 6, -2),                            # 2(xz - wy)
+    (11, 7, 2), (1, 7, 2),                            # 2(yz + wx)
+    (0, 8, 1), (5, 8, -1), (10, 8, -1), (15, 8, 1),   # w²-x²-y²+z²
+)
+
+
+def _linear_map(entries, rows: int, cols: int, device, dtype,
+                mirror: int = 0):
+    """The (rows, cols) matrix of ``entries``; with ``mirror`` = n, each
+    entry at row i*n+j, i != j, is also put at row j*n+i."""
+    m = [0.0] * (rows * cols)
+    for r, c, v in entries:
+        m[r * cols + c] += float(v)
+        if mirror and r // mirror != r % mirror:
+            m[(r % mirror * mirror + r // mirror) * cols + c] += float(v)
+    return const(tuple(m), device, dtype).reshape(rows, cols)
+
+
+def kabsch_horn(H: torch.Tensor, sweeps: int = 5) -> torch.Tensor:
+    """The rotation R maximising tr(R H) for the 3x3 cross-covariance
+    H = Σ x yᵀ (so R x ≈ y), by Horn's quaternion method: the unit
+    eigenvector of the largest eigenvalue of the symmetric 4x4 N(H)
+    (Jacobi, ``sweeps`` sweeps).  On ties the first eigenvector wins, so
+    H = 0 gives the identity, as the SVD form does."""
+    dev, dt = H.device, H.dtype
+    N = (_linear_map(_HORN_N, 16, 9, dev, dt, mirror=4)
+         @ H.reshape(9)).reshape(4, 4)
+    evals, V = jacobi_eigen(N, sweeps)
+    q = V.index_select(1, torch.argmax(evals).reshape(1))[:, 0]
+    q = q / torch.clamp(torch.linalg.norm(q), min=1e-30)
+    qq = (q[:, None] * q[None, :]).reshape(16)
+    return (qq @ _linear_map(_HORN_R, 16, 9, dev, dt)).reshape(3, 3)

@@ -20,6 +20,8 @@ from typing import Tuple
 
 import torch
 
+from ..device import const
+
 BIG = 1e30
 _U32 = 0xFFFFFFFF
 
@@ -28,7 +30,7 @@ def div(x: torch.Tensor, s: float) -> torch.Tensor:
     """``x / s`` as a true division on every device (CUDA divides by a
     Python scalar as a multiply by its reciprocal, which moves floor/round
     boundaries by an ulp)."""
-    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+    return x / const(s, x.device, x.dtype)
 
 
 def voxel_cells(points: torch.Tensor, leaf: float) -> torch.Tensor:
@@ -65,7 +67,8 @@ def _group_ids(keys: torch.Tensor, valid: torch.Tensor, cap: int):
     """Stable sort by key (invalid last) -> (order, group id per sorted row
     with rows beyond ``cap`` or invalid sent to ``cap``, sorted validity,
     number of occupied voxels)."""
-    h = torch.where(valid, keys, torch.full_like(keys, _U32))
+    # Invalid rows strictly after every valid key, so the ids are sorted.
+    h = torch.where(valid, keys, torch.full_like(keys, _U32 + 1))
     hs, order = torch.sort(h, stable=True)
     vs = valid[order]
     new_group = torch.cat([torch.ones(1, dtype=torch.bool, device=h.device),
@@ -74,6 +77,17 @@ def _group_ids(keys: torch.Tensor, valid: torch.Tensor, cap: int):
     gid = torch.where(vs & (gid < cap) & (gid >= 0), gid,
                       torch.full_like(gid, cap))
     return order, gid.long(), vs, torch.sum(new_group).to(torch.int32)
+
+
+def _voxel_sums(rows: torch.Tensor, gid: torch.Tensor, cap: int):
+    """(cap, D) sums of ``rows`` by their sorted group id (ids >= ``cap``
+    dropped), each group's rows added in order from 0, as the JAX package's
+    scatter-add and the CPU's ``index_add_`` take them.  A segment sum over
+    the runs of the sorted ids: on the card ``index_add_`` adds with float
+    atomics in no fixed order, so a step would not repeat bitwise."""
+    starts = torch.searchsorted(gid, torch.arange(cap + 1, device=gid.device))
+    return torch.segment_reduce(rows, "sum", lengths=starts[1:] - starts[:-1],
+                                unsafe=True)
 
 
 def voxel_downsample(points, valid, leaf: float, cap: int, origin=None,
@@ -90,9 +104,8 @@ def voxel_downsample(points, valid, leaf: float, cap: int, origin=None,
     vf = valid.to(points.dtype)
     w = vf if weights is None else weights * vf
     ps, wf = points[order], w[order]
-    acc = torch.zeros((cap + 1, 4), dtype=points.dtype, device=points.device)
-    acc.index_add_(0, gid, torch.cat([ps * wf[:, None], wf[:, None]], dim=1))
-    acc = acc[:cap]
+    acc = _voxel_sums(torch.cat([ps * wf[:, None], wf[:, None]], dim=1), gid,
+                      cap)
     sums, counts = acc[:, :3], acc[:, 3]
     out_valid = counts > 0
     out = sums / torch.clamp(counts, min=1e-9)[:, None]
@@ -114,11 +127,8 @@ def voxel_downsample_with_payload(points, payload, valid, leaf: float,
     pd = pay2.shape[1]
     vf = valid.to(points.dtype)[order]
     ps, pay_s = points[order], pay2.to(points.dtype)[order]
-    acc = torch.zeros((cap + 1, 4 + pd), dtype=points.dtype,
-                      device=points.device)
-    acc.index_add_(0, gid, torch.cat([ps * vf[:, None], pay_s * vf[:, None],
-                                      vf[:, None]], dim=1))
-    acc = acc[:cap]
+    acc = _voxel_sums(torch.cat([ps * vf[:, None], pay_s * vf[:, None],
+                                 vf[:, None]], dim=1), gid, cap)
     sums, psums, counts = acc[:, :3], acc[:, 3:3 + pd], acc[:, 3 + pd]
     out_valid = counts > 0
     c = torch.clamp(counts, min=1.0)

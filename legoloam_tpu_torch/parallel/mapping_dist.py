@@ -13,7 +13,7 @@ file has it (``pipeline_dist.extract_submap_dist`` selects globally);
 ``scan_to_map_sharded`` splits the scan rows over the ranks with the submap
 replicated, and all-reduces the residual counts and normal equations of
 every LM iteration through ``mapping.scan_to_map``'s ``reduce_fn``; its
-decisions are read through ``Mesh.read``.
+decisions stay on the device, on the reduced values every rank shares.
 """
 
 from __future__ import annotations
@@ -112,12 +112,11 @@ def scan_to_map_sharded(guess: Pose, corner, corner_valid, surf, surf_valid,
     """Distributed ``mapping.scan_to_map``: given the replicated scan
     clouds, each rank solves with its block of the scan rows against the
     replicated submap, the residual counts and 6x6 normal equations of every
-    iteration all-reduced, so every rank applies the same update (each
-    decision read through ``Mesh.read``).  Returns
+    iteration all-reduced, so every rank applies the same update (every
+    decision on the reduced values, on the device).  Returns
     (pose, iterations, n corner residuals, n surf residuals), replicated —
     the single-device result up to the order of the float sums."""
     return mapping_mod.scan_to_map(
         guess, block_rows(corner, mesh), block_rows(corner_valid, mesh),
         block_rows(surf, mesh), block_rows(surf_valid, mesh),
-        sub_c, sub_cv, sub_s, sub_sv, cfg, reduce_fn=mesh.all_reduce,
-        read_fn=mesh.read)
+        sub_c, sub_cv, sub_s, sub_sv, cfg, reduce_fn=mesh.all_reduce)

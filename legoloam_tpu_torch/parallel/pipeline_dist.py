@@ -277,11 +277,14 @@ def gather_keyframe_clouds(kf: DistKeyframes, idxs, mesh: Mesh):
 
 def mesh_map_hooks(mesh: Mesh) -> mapping_mod.MapHooks:
     """``mapping.mapping_step``'s hooks over the ranks: the submap rebuilt
-    every step by ``extract_submap_dist`` (no cache, no voxel overflow
-    count), the LM over the ranks, decisions read through ``Mesh.read``,
-    a keyframe's clouds written by their owner."""
+    every step by ``extract_submap_dist`` (no cache, no branch to decide,
+    no voxel overflow count), the LM over the ranks, decisions read
+    through ``Mesh.read``, a keyframe's clouds written by their owner."""
 
-    def submap(state: DistMapState, center, cfg: MappingConfig):
+    def decide(state: DistMapState, center, cfg: MappingConfig):
+        return None
+
+    def submap(state: DistMapState, center, cfg: MappingConfig, branch):
         c, s = extract_submap_dist(state.kf, center, cfg, mesh)
         return state, c, s, torch.zeros((), dtype=torch.int32,
                                         device=center.device)
@@ -289,11 +292,14 @@ def mesh_map_hooks(mesh: Mesh) -> mapping_mod.MapHooks:
     def scan_to_map(*args):
         return mapping_dist.scan_to_map_sharded(*args, mesh)
 
-    def write_clouds(kf, k, c_pts, c_ok, s_pts, s_ok):
-        _append_clouds_dist(kf, k, True, c_pts, c_ok, s_pts, s_ok, mesh)
+    def write_clouds(kf, k, write, c_pts, c_ok, s_pts, s_ok):
+        _append_clouds_dist(kf, mesh.read(k, "keyframe slot"),
+                            mesh.read(write, "keyframe gate"), c_pts, c_ok,
+                            s_pts, s_ok, mesh)
 
-    return mapping_mod.MapHooks(submap=submap, scan_to_map=scan_to_map,
-                                read=mesh.read, write_clouds=write_clouds)
+    return mapping_mod.MapHooks(decide=decide, submap=submap,
+                                scan_to_map=scan_to_map, read=mesh.read,
+                                write_clouds=write_clouds)
 
 
 def mapping_step_dist(state: DistMapState, corner_cloud: FeatureCloud,
@@ -395,6 +401,9 @@ class MeshBackend(pipeline_mod.Backend):
     closure through ``close_and_correct_dist``; no decimation (as in the
     JAX package)."""
 
+    # NCCL and gloo collectives run eagerly (the step is not captured).
+    capturable = False
+
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.map_hooks = mesh_map_hooks(mesh)
@@ -410,7 +419,7 @@ class MeshBackend(pipeline_mod.Backend):
         Collective."""
         return to_slam_state(state, cfg, self.mesh)
 
-    def close_loop(self, map_state, loops, cfg: PipelineConfig):
+    def close_loop(self, map_state, loops, cfg: PipelineConfig, rt=None):
         kf, loops, corrected, ldiag = close_and_correct_dist(
             map_state.kf, loops, cfg.loop, cfg.posegraph, self.mesh)
         if self.mesh.read(ldiag.closed, "loop closed"):

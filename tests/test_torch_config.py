@@ -48,7 +48,8 @@ PORT_MODULES = [
     "utils.metrics", "evals.kidnap", "evals.loop_recovery", "evals.long",
     "parallel.mesh", "parallel.costs", "parallel.frontend_dp",
     "parallel.posegraph_dist", "parallel.mapping_dist",
-    "parallel.pipeline_dist", "parallel.dryrun"]
+    "parallel.pipeline_dist", "parallel.dryrun", "models.step_graph",
+    "ops.segments"]
 
 
 def test_port_imports_no_jax():
