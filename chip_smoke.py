@@ -25,8 +25,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      scan -> fusion) at the DEFAULT configuration (VLP-16 16x1800, submap
      caps 12288/49152, scan caps 2048/8192, 4096-keyframe store) over 96
      ring-world scans through the drivers' step graph
-     (models/step_graph.py: each segment of the step captured as a CUDA
-     graph at its first run, replayed after; a replay counts the launches
+     (models/step_graph.py: each segment of the step run eagerly at its
+     first occurrence, the segments between two host reads then captured
+     as one CUDA graph and replayed after; a replay counts the launches
      its capture recorded), with every kernel's launch count read around
      the run; fused ATE against ground truth < 0.2 m;
   4b. [graph] the same scans through a StepGraph whose graphs were
@@ -38,6 +39,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      card's idle share over a replayed pass (torch.profiler); the same
      graph-vs-eager check on the IMU path (9) and, with the CG chunk sizes
      of PCG_CHUNKS timed, on the loop lap's first accepted attempt (7);
+  4c. [block graph] the same scans in blocks of mapping_every through
+     StepGraph.block (slam_scan_block's body), a capturing pass, then a
+     replayed pass: bitwise to 4b's per-scan graphs, at most 1 host read
+     and 2 graph replays a block, scans/s;
   5. run the first 6 scans on the card and on the CPU (plain versions):
      fused trajectories agree to 1e-3 m;
   6. time each kernel (wrapper call and bare launch), its plain version and,
@@ -54,12 +59,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
      tests/test_loop_e2e.py (260 scans at 1.05 m a scan): at least one
      accepted closure, fused ATE < 0.5 m, every stored rotation with
      |det - 1| < 1e-3, all finite; attempts, ICP iterations and ms per
-     attempt; K3 bitwise against the exact search at the two ICP shapes
-     (the accepted attempt's 10240 x 32768 clouds and relocalization's
-     4096 x 16384), timed there as in 6, and the ICP's 3x3 rotation
-     timed; the first accepted attempt again on the card and on the CPU
-     from a copy of its store and factors, at DEFAULT: equal closure
-     flags, fitness and corrected positions within the stated bounds;
+     attempt; K3 bitwise against the exact search at the three ICP shapes
+     (the accepted attempt's 10240 x 32768 clouds, relocalization's
+     refine 4096 x 16384 and its coarse stage's 16384 x 16384, a
+     candidate's four headings in one search), timed there as in 6, and
+     the ICP's 3x3 rotation timed; the first accepted attempt again on
+     the card and on the CPU from a copy of its store and factors, at
+     DEFAULT: equal closure flags, fitness and corrected positions within
+     the stated bounds (the position gap split into the ICP's loop
+     measurement and the pose-graph solve alone on the same factors);
   8. decimate_keyframes(keep_recent=32) on the loop run's final store on
      the card and on the CPU (counts, kept times, validity and factors
      equal, poses within 1e-5), and a 96-scan run_slam_sequence whose
@@ -69,8 +77,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      median ms of each stage of process_scan_with_imu;
  10. a resumed session on the loop run's map: fresh odometry, a rigid scan
      where the run's last sweep ended, the belief moved 20 m and 90 degrees
-     from the last mapped pose; relocalize_slam_state accepts, < 0.3 m
-     from ground truth (the map frame aligned as for the ATE);
+     from the last mapped pose; relocalize_slam_state as captured graphs
+     accepts, < 0.3 m from ground truth (the map frame aligned as for the
+     ATE), and equals its eager body (graph=False; the same acceptance and
+     candidate, within 1e-5 m): seconds, host reads (at most refine_top_k
+     x ceil(icp_max_iters / REFINE_CHUNK)) and K3 launches of each;
  11. [io] 300 + 40 DEFAULT scans of the main-path world written as .lpk
      files and an IMU1 sidecar, read back by the prefetching ScanLoader
      (csrc/legoio.cpp, built with g++) bitwise equal;
@@ -93,16 +104,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
      over the last 100 scans under half the OFF arm's (16 and 17 run as
      child processes at the end, with 25 and 26);
  18. [mesh] run_slam_sequence_dist (legoloam_tpu_torch/parallel/) on an
-     NCCL group of one rank over the 96 main-path scans: fused ATE < 0.2 m,
-     within 0.05 m of [main]'s fused positions, equal keyframe counts, and
-     its scans/s beside [main]'s; [mesh memory] memory.dist_state_bytes
-     against init_dist_state's tensors and allocation;
- 19. [mesh loop] the loop lap of 7 through run_slam_sequence_dist: at
-     least one accepted closure, fused ATE < 0.5 m;
+     NCCL group of one rank over the 96 main-path scans, the step as
+     captured graphs: fused ATE < 0.2 m, within 0.05 m of [main]'s fused
+     positions, equal keyframe counts, and its scans/s beside [main]'s;
+     [mesh graph] the same scans replayed against the mesh's eager body
+     (graph=False): fused positions bitwise, equal keyframes, host reads
+     per scan 0 / at most 1, scans/s of both; [mesh memory]
+     memory.dist_state_bytes against init_dist_state's tensors and
+     allocation;
+ 19. [mesh loop] the loop lap of 7 through run_slam_sequence_dist, as
+     captured graphs: at least one accepted closure, fused ATE < 0.5 m, ms
+     per attempt;
  20. [mesh x2] two gloo ranks sharing the card, CUDA tensors:
      optimize_sharded and scan_to_map_sharded against the single-device
      solves within tests/test_sharding.py's bounds, and the store's round
-     trip through the shards bitwise;
+     trip through the shards bitwise (printed beside the pose-graph gap:
+     the CG chunk reads on each side, optimize on the card vs the CPU,
+     and both solves again at a tighter CG tolerance);
  21. [mesh cli] ``python -m legoloam_tpu_torch --mesh 1`` over the first 100
      session-1 files with --imu --loop-closure (fused ATE < 0.2 m); its
      checkpoint resumed by the single-device CLI over the next 20 files
@@ -133,8 +151,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      after 22; 23 and 24 run on the card in this process meanwhile.  The
      JAX package's v5e TPU ledgers are printed beside 25 and 26, labelled
      as such.
-  Every phase but [mesh*] and the [reloc] boot step runs the step through
-  the drivers' step graph.
+  Every phase but [mesh x2] and the [reloc] boot step runs the step
+  through the drivers' step graph.
   Each path's kernel launches are counted around its run (the CLI runs and
   the evaluations report theirs from their processes); the kernels line
   sums them.
@@ -211,6 +229,9 @@ CLI_TIMEOUT_S = 600
 # checkpoint is resumed over by the single-device CLI.
 MESH_CLI_SCANS = 100
 MESH_RESUME_SCANS = 20
+# [mesh x2]'s second pose-graph solve: a CG tolerance 1e4 times the
+# configured one (||r||^2 <= tol ||b||^2), near float32's floor.
+X2_TIGHT_TOL = 1e-12
 # The JAX package's debug-dump record names (legoloam_tpu/utils/
 # debugdump.py): the frontend capture, the mapping-state scalars, and one
 # record per odometry diagnostic.
@@ -713,6 +734,14 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
+def flush(rt):
+    """Run what the segment runner ``rt`` deferred (a graph runner replays
+    a chain of segments at its end), so a timing or a read around a call
+    sees its work done."""
+    if rt is not None:
+        rt.flush()
+
+
 def to_device(tree, dev):
     """Every tensor of a tree of tuples on ``dev``."""
     if isinstance(tree, tuple):
@@ -745,6 +774,7 @@ class AttemptLog:
 
     def __call__(self, kf, loops, cfg, pg_cfg, **kw):
         knn_k = _native.KERNELS["knn"]
+        flush(kw.get("rt"))
         sync(kf.t.device)
         if self.first is None:
             # The store and factors as given: under the step graph they
@@ -753,6 +783,7 @@ class AttemptLog:
                      type(loops)(*(a.clone() for a in loops)))
         n0, t0 = knn_k.launches, time.perf_counter()
         out = self.fn(kf, loops, cfg, pg_cfg, **kw)
+        flush(kw.get("rt"))
         sync(kf.t.device)
         ms = (time.perf_counter() - t0) * 1e3
         diag = out[3]
@@ -773,9 +804,9 @@ class AttemptLog:
 
 class CallTimer:
     """Stands in for ``fn`` while installed: host milliseconds of each
-    call, the card synchronised around it, and the host reads the segment
-    runner (``rt=``) made in it; ``iters`` the ICP's iterations when ``fn``
-    returns an ``IcpResult``."""
+    call, the card synchronised and the runner's deferred chain run around
+    it, and the host reads the segment runner (``rt=``) made in it;
+    ``iters`` the ICP's iterations when ``fn`` returns an ``IcpResult``."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -787,9 +818,11 @@ class CallTimer:
         dev = "cuda" if torch.cuda.is_available() else "cpu"
         rt = kwargs.get("rt")
         r0 = getattr(rt, "reads", 0)
+        flush(rt)
         sync(dev)
         t0 = time.perf_counter()
         out = self.fn(*args, **kwargs)
+        flush(rt)
         sync(dev)
         self.ms.append((time.perf_counter() - t0) * 1e3)
         self.reads.append(getattr(rt, "reads", 0) - r0)
@@ -838,21 +871,31 @@ def attempt_card_vs_cpu(first, cfg, dev):
     """The first accepted attempt's store and factors, through
     ``close_and_correct`` on the card and on the CPU: (closed on each,
     fitness on each, the largest corrected keyframe position difference,
-    CPU seconds)."""
+    CPU seconds, and its split: the ICP's loop measurement card vs CPU
+    (m), and the pose-graph solve alone card vs CPU on the card's factors
+    (m))."""
     kf = first["kf"]
     out = {}
     for where in (dev, "cpu"):
         t0 = time.perf_counter()
-        k2, _, _, diag = loopclosure.close_and_correct(
+        k2, l2, _, diag = loopclosure.close_and_correct(
             to_device(kf, where), to_device(first["loops"], where), cfg.loop,
             cfg.posegraph)
         sync(where)
         out[str(where)] = (bool(diag.closed), float(diag.fitness),
-                           k2.t.cpu(), time.perf_counter() - t0)
-    (cg, fg, tg, _), (cc, fc, tc, sec) = out[str(dev)], out["cpu"]
+                           k2.t.cpu(), time.perf_counter() - t0,
+                           to_device(l2, "cpu"))
+    (cg, fg, tg, _, lg), (cc, fc, tc, sec, lc) = out[str(dev)], out["cpu"]
     n = int(kf.count)
     gap = float((tg[:n] - tc[:n]).abs().max())
-    return (cg, cc), (fg, fc), gap, sec
+    m = max(int(lg.count), 1)
+    icp_gap = float((lg.t[:m] - lc.t[:m]).abs().max())
+    solved = [posegraph.optimize(k.R, k.t, k.count, k.chain_R, k.chain_t,
+                                 lo, Pose(k.R[0], k.t[0]), cfg.posegraph)[1]
+              .cpu() for k, lo in ((to_device(kf, d), to_device(lg, d))
+                                   for d in (dev, "cpu"))]
+    solve_gap = float((solved[0][:n] - solved[1][:n]).abs().max())
+    return (cg, cc), (fg, fc), gap, sec, icp_gap, solve_gap
 
 
 def decimate_card_vs_cpu(kf, loops, dev, keep_recent=32):
@@ -954,6 +997,23 @@ def reloc_clouds(state, cfg, placement: Pose):
     return (transform_points(placement, pts), val) + hist
 
 
+def reloc_coarse_clouds(state, cfg, placement: Pose):
+    """Kernel K3's inputs at the relocalization's coarse shape: the scan's
+    cloud placed at the ``yaw_hypotheses`` headings of ``placement`` (its
+    attitude turned about z), one query set of ``n_yaw x cur_cap`` rows,
+    against the latest keyframe's window."""
+    q, qv, hist, hist_v = reloc_clouds(state, cfg, Pose.identity(
+        device=placement.t.device))
+    n_yaw = cfg.reloc.yaw_hypotheses
+    parts = []
+    for h in range(n_yaw):
+        Rz = se3.rot_z(torch.tensor(2.0 * math.pi * h / n_yaw,
+                                    device=q.device))
+        parts.append(transform_points(Pose(Rz @ placement.R, placement.t),
+                                      q))
+    return torch.cat(parts), qv.repeat(n_yaw), hist, hist_v
+
+
 def ground_truth(poses, n):
     """Ground-truth positions of scans 0..n-1.  A scan is ray-cast while
     the sensor moves from trajectory pose k to pose k + 1 and the pipeline
@@ -1038,6 +1098,14 @@ def cli_launches(out_dir):
         fail(f"cli: no kernel launches in {out_dir}/profile.txt")
     counts = dict(part.rsplit(" ", 1) for part in m.group(1).split(", "))
     return {name: int(counts.get(name, 0)) for name in _native.KERNELS}
+
+
+def stage_seconds(out_dir, stage):
+    """A stage's total seconds from the CLI's profile.txt (the card
+    synchronised at the stage's end); None when it did not run."""
+    text = open(os.path.join(out_dir, "profile.txt")).read()
+    m = re.search(rf"^{stage}\s+([0-9.]+)s total", text, re.M)
+    return float(m.group(1)) if m else None
 
 
 def check_dumps(dump_dir, paths, cfg, dev):
@@ -1193,7 +1261,8 @@ def cli_phases(work, cfg, dev, card, paths):
     paths["cli resume"] = cli_launches(out2)
     log(f"[cli resume] --resume --relocalize over {RESUME_SCANS} files from "
         f"pose {RESUME_START} (first scan rigid): {sec:.1f} s; "
-        f"{m.group(0) if m else 'no [reloc] line'}; map-frame error over "
+        f"{m.group(0) if m else 'no [reloc] line'}, the relocalization "
+        f"{stage_seconds(out2, 'relocalize')} s; map-frame error over "
         f"scans 1..{RESUME_SCANS - 1} RMS {rms:.4f} m, max "
         f"{float(err.max()):.4f} m; launches {paths['cli resume']} [{card}]")
     if not m or m.group(1) != "True" or not rms < 0.3:
@@ -1739,10 +1808,12 @@ class DistAttemptLog:
         self.fn = pipeline_dist.close_and_correct_dist
         self.rows = []
 
-    def __call__(self, kf, loops, cfg, pg_cfg, mesh):
+    def __call__(self, kf, loops, cfg, pg_cfg, mesh, rt=None):
+        flush(rt)
         sync(kf.t.device)
         t0 = time.perf_counter()
-        out = self.fn(kf, loops, cfg, pg_cfg, mesh)
+        out = self.fn(kf, loops, cfg, pg_cfg, mesh, rt=rt)
+        flush(rt)
         sync(kf.t.device)
         diag = out[3]
         self.rows.append({"ms": (time.perf_counter() - t0) * 1e3,
@@ -1769,7 +1840,11 @@ def x2_rank(mesh, path_in, path_out):
     pg = to_device(inp["pg"], mesh.device)
     s2m = to_device(inp["s2m"], mesh.device)
     kf = to_device(inp["kf"], mesh.device)
-    R, t = posegraph_dist.optimize_sharded(*pg, cfg.posegraph, mesh)
+    solves = {}
+    for name, pcfg in x2_pg_cfgs(cfg).items():
+        rt = segments.Eager(mesh.read)
+        solves[name] = posegraph_dist.optimize_sharded(*pg, pcfg, mesh,
+                                                       rt=rt) + (rt.reads,)
     T, it, nc, ns = mapping_dist.scan_to_map_sharded(*s2m, cfg.mapping, mesh)
     dkf = pipeline_dist.from_keyframe_store(kf, mesh)
     back0 = pipeline_dist.to_keyframe_store(dkf, mesh)
@@ -1779,7 +1854,8 @@ def x2_rank(mesh, path_in, path_out):
         [float(same)], device=mesh.device))
     if mesh.rank == 0:
         same0 = all(torch.equal(a, b) for a, b in zip(back0, kf))
-        torch.save({"pg": (R.cpu(), t.cpu()),
+        torch.save({"pg": {k: (R.cpu(), t.cpu(), n)
+                           for k, (R, t, n) in solves.items()},
                     "s2m": (T.R.cpu(), T.t.cpu(), int(it), int(nc), int(ns)),
                     "roundtrip_rank0": same0,
                     "roundtrip_everywhere": float(same_all) == mesh.size,
@@ -1787,6 +1863,14 @@ def x2_rank(mesh, path_in, path_out):
                     "launches": {n: k.launches
                                  for n, k in _native.KERNELS.items()}},
                    path_out)
+
+
+def x2_pg_cfgs(cfg):
+    """[mesh x2]'s pose-graph settings: the configured CG tolerance, and
+    a tighter one that shows how much of the sharded-vs-single gap is the
+    CG's early exit."""
+    return {"tol": cfg.posegraph, "tight": dataclasses.replace(
+        cfg.posegraph, pcg_tol=X2_TIGHT_TOL)}
 
 
 def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths):
@@ -1803,7 +1887,8 @@ def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths):
         ate = float(metrics.ate_rmse(fused.t, gt))
         gap = float((fused.t - fused_m.t).norm(dim=1).max())
         n_kf = int(st.mapping.kf.count)
-        log(f"[mesh] run_slam_sequence_dist at world size 1 (NCCL) over the "
+        log(f"[mesh] run_slam_sequence_dist at world size 1 (NCCL, the "
+            f"step's graphs captured on the way) over the "
             f"{N_SCANS} main-path scans: {sec:.3f} s = {N_SCANS / sec:.2f} "
             f"scans/s ([main] {rate_m:.2f}); fused ATE {ate:.4f} m; largest "
             f"distance to [main]'s fused positions {gap:.4f} m; {n_kf} "
@@ -1814,6 +1899,7 @@ def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths):
             fail(f"mesh: {gap:.4f} m from [main], {n_kf} vs {n_kf_m} "
                  "keyframes")
         del st
+        mesh_graph_phase(mesh, scans, cfg, card, rate_m, N_SCANS / sec)
 
         # The distributed state's bytes: the budget and the allocation.
         budget = memory.dist_state_bytes(cfg, 1)
@@ -1860,7 +1946,8 @@ def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths):
         acc = [r for r in alog.rows if r["closed"]]
         ms = sorted(r["ms"] for r in cands)
         log(f"[mesh loop] the {LOOP_SCANS}-scan lap through "
-            f"run_slam_sequence_dist at world size 1: {sec:.3f} s = "
+            f"run_slam_sequence_dist at world size 1 (NCCL, as captured "
+            f"graphs): {sec:.3f} s = "
             f"{LOOP_SCANS / sec:.2f} scans/s; {len(alog.rows)} attempts, "
             f"{len(cands)} with a candidate, {len(acc)} accepted (loop "
             f"factors {int(st_l.loops.count)}), ms per attempt with a "
@@ -1878,6 +1965,56 @@ def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths):
     x2_phase(work, cfg, dev, card, pg, scans)
 
 
+def mesh_graph_phase(mesh, scans, cfg, card, rate_main, rate_mesh):
+    """[mesh graph]: the main-path scans through the mesh's StepGraph on
+    the NCCL group — a capturing pass, then passes from a fresh state that
+    replay — against the mesh's eager body (``graph=False``): fused
+    positions bitwise, equal keyframes, host reads per scan (0 on a
+    non-mapping scan, at most 1 on a mapping scan), scans/s of both beside
+    [main]'s and [mesh]'s."""
+    backend = pipeline_dist.MeshBackend(mesh)
+
+    def fresh():
+        return pipeline_dist.init_dist_state(cfg, mesh)
+
+    sg = step_graph.StepGraph(fresh(), cfg, backend)
+    if not sg.captured:
+        fail("mesh graph: the NCCL mesh's step is not captured")
+    _, t_cap = timed(lambda: graph_steps(sg, scans, cfg))
+    sg.load(fresh())
+    p0 = sg.rt.replays
+    fused_g, t_g = timed(lambda: graph_steps(sg, scans, cfg))
+    replays = sg.rt.replays - p0
+    kf_g = int(sg.state.mapping.kf.count)
+    sg.load(fresh())
+    reads = []
+    graph_steps(sg, scans, cfg, reads=reads)
+    n_chains = len(sg.rt.chains)
+    del sg
+    se = step_graph.StepGraph(fresh(), cfg, backend, graph=False)
+    fused_e, t_e = timed(lambda: graph_steps(se, scans, cfg))
+    kf_e = int(se.state.mapping.kf.count)
+    del se
+    gap = float((fused_g - fused_e).abs().max())
+    rm = [r for k, r in enumerate(reads) if k % cfg.mapping_every == 0]
+    ro = [r for k, r in enumerate(reads) if k % cfg.mapping_every != 0]
+    n = len(scans)
+    log(f"[mesh graph] {n} main-path scans through the mesh's StepGraph "
+        f"(NCCL, world size 1; {n_chains} chains captured, {replays} graph "
+        f"replays in a replayed pass): capturing pass {n / t_cap:.2f} "
+        f"scans/s, replayed {n / t_g:.2f} scans/s, the mesh's eager body "
+        f"{n / t_e:.2f} scans/s ([main] {rate_main:.2f}, [mesh] "
+        f"{rate_mesh:.2f}); graph vs eager max fused position difference "
+        f"{gap:.3g} m, keyframes {kf_g} / {kf_e}; host reads per scan: "
+        f"mapping scans {sorted(set(rm))}, other scans {sorted(set(ro))} "
+        f"[{card}]")
+    if not gap == 0.0 or kf_g != kf_e:
+        fail(f"mesh graph: graph vs eager {gap:.3g} m, keyframes {kf_g} / "
+             f"{kf_e}")
+    if any(r != 0 for r in ro) or any(r > 1 for r in rm):
+        fail(f"mesh graph: host reads per scan {reads}")
+
+
 def x2_phase(work, cfg, dev, card, pg, scans):
     """[mesh x2]: two ranks on the one card over gloo with CUDA tensors
     (NCCL takes one rank per card): the sharded pose graph (the mesh loop's
@@ -1893,7 +2030,11 @@ def x2_phase(work, cfg, dev, card, pg, scans):
     s2m = (guess, kf.corner[last], kf.corner_valid[last], kf.surf[last],
            kf.surf_valid[last], cache.c_pts, cache.c_valid, cache.s_pts,
            cache.s_valid)
-    R1, t1 = posegraph.optimize(*pg, cfg.posegraph)
+    single = {}
+    for name, pcfg in x2_pg_cfgs(cfg).items():
+        rt = segments.Eager()
+        single[name] = posegraph.optimize(*pg, pcfg, rt=rt) + (rt.reads,)
+    t_cpu = posegraph.optimize(*to_device(pg, "cpu"), cfg.posegraph)[1]
     T1, it1, nc1, ns1 = mapping.scan_to_map(*s2m, cfg.mapping)
     path_in = os.path.join(work, "x2_in.pt")
     path_out = os.path.join(work, "x2_out.pt")
@@ -1905,17 +2046,27 @@ def x2_phase(work, cfg, dev, card, pg, scans):
                     backend="gloo", timeout_s=600)
     sec = time.perf_counter() - t0
     out = torch.load(path_out, weights_only=False)
-    R2, t2 = out["pg"]
     TR, Tt, it, nc, ns = out["s2m"]
     n = int(pg[2])
-    pg_gap = float((t2[:n] - t1[:n].cpu()).abs().max())
-    pg_rot = float((R2[:n] - R1[:n].cpu()).abs().max())
+    gaps = {}
+    for name, (R2, t2, reads2) in out["pg"].items():
+        R1, t1, reads1 = single[name]
+        gaps[name] = (float((t2[:n] - t1[:n].cpu()).abs().max()),
+                      float((R2[:n] - R1[:n].cpu()).abs().max()),
+                      reads1, reads2)
+    pg_gap, pg_rot, reads1, reads2 = gaps["tol"]
+    cpu_gap = float((single["tol"][1][:n].cpu() - t_cpu[:n]).abs().max())
     s_gap = float((Tt - T1.t.cpu()).abs().max())
     s_rot = float((TR - T1.R.cpu()).abs().max())
     log(f"[mesh x2] two gloo ranks with CUDA tensors on the one card, "
         f"{sec:.1f} s with start-up: optimize_sharded on the mesh loop's "
         f"{n}-node graph vs optimize: positions {pg_gap:.3g}, rotations "
-        f"{pg_rot:.3g}; scan_to_map_sharded vs scan_to_map: iterations "
+        f"{pg_rot:.3g}, CG chunk reads {reads2} / {reads1}; optimize on "
+        f"the card vs the CPU: positions {cpu_gap:.3g}; at pcg_tol "
+        f"{X2_TIGHT_TOL:g}: sharded vs single positions "
+        f"{gaps['tight'][0]:.3g}, rotations {gaps['tight'][1]:.3g}, CG "
+        f"chunk reads {gaps['tight'][3]} / {gaps['tight'][2]}; "
+        f"scan_to_map_sharded vs scan_to_map: iterations "
         f"{it} / {int(it1)}, residuals {nc} + {ns} / {int(nc1)} + "
         f"{int(ns1)}, position {s_gap:.3g} m, rotation {s_rot:.3g}; the "
         f"{kf.t.shape[0]}-slot store ({out['slots']} slots a rank) back "
@@ -1993,7 +2144,8 @@ def mesh_cli_phase(work, cfg, dev, card, s1, imu_path, ckpt, poses, paths):
         f"{sec2:.1f} s, map-frame error RMS {rms2:.4f} m; --mesh 1 --resume "
         f"--relocalize from [cli]'s checkpoint over the {RESUME_SCANS} "
         f"session-2 files: {sec3:.1f} s, "
-        f"{m.group(0) if m else 'no [reloc] line'}, map-frame error over "
+        f"{m.group(0) if m else 'no [reloc] line'}, the relocalization "
+        f"{stage_seconds(out3, 'relocalize')} s, map-frame error over "
         f"scans 1..{RESUME_SCANS - 1} RMS {rms3:.4f} m; launches "
         f"{paths['mesh cli resume']} [{card}]")
     if not (done and ate < 0.2):
@@ -2117,7 +2269,9 @@ def graph_phase(scans, cfg, dev, card, main_fused, main_kf):
     sg = step_graph.StepGraph(fresh(), cfg)
     _, t_capture = timed(lambda: graph_steps(sg, scans, cfg))
     sg.load(fresh())
+    p0 = sg.rt.replays
     fused_g, t_g = timed(lambda: graph_steps(sg, scans, cfg))
+    replays = sg.rt.replays - p0
     kf_g = int(sg.state.mapping.kf.count)
     se = step_graph.StepGraph(fresh(), cfg, graph=False)
     fused_e, t_e = timed(lambda: graph_steps(se, scans, cfg))
@@ -2158,8 +2312,9 @@ def graph_phase(scans, cfg, dev, card, main_fused, main_kf):
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
     rm, ro = split(reads_g)
     log(f"[graph] {len(scans)} main-path scans through StepGraph "
-        f"({len(sg.rt.segs)} segments captured, {sg.rt.replays} replays "
-        f"so far): capturing pass {len(scans) / t_capture:.2f} scans/s, "
+        f"({len(sg.rt.segs)} segments in {len(sg.rt.chains)} chains "
+        f"captured; {replays} graph replays in a replayed pass): capturing "
+        f"pass {len(scans) / t_capture:.2f} scans/s, "
         f"replayed {len(scans) / t_g:.2f} scans/s, eager body "
         f"{len(scans) / t_e:.2f} scans/s ({t_e / t_g:.2f}x); graph vs eager "
         f"max fused position difference {gap:.3g} m ([main] vs eager "
@@ -2195,7 +2350,70 @@ def graph_phase(scans, cfg, dev, card, main_fused, main_kf):
         fail(f"graph: keyframes {kf_g} / {kf_e} / {main_kf}")
     if any(r != 0 for r in ro) or any(r > 1 for r in rm):
         fail(f"graph: host reads per scan {reads_g}")
-    return len(scans) / t_g, len(scans) / t_e
+    return fused_g, len(scans) / t_g, len(scans) / t_e
+
+
+def block_graph_phase(scans, cfg, dev, card, fused_g, rate_g):
+    """[block graph]: the main path's scans in blocks of ``mapping_every``
+    through ``StepGraph.block`` (``pipeline.slam_scan_block``'s body): a
+    capturing pass, then a pass from a fresh state that replays, against
+    the per-scan StepGraph's replayed fused positions ``fused_g``
+    (bitwise); host reads and graph replays per block, scans/s beside the
+    per-scan graphs' ``rate_g``."""
+    B = cfg.mapping_every
+    n = len(scans) // B * B
+    blocks = [tuple(torch.stack([scans[b + i][j] for i in range(B)])
+                    for j in range(3)) for b in range(0, n, B)]
+    times = torch.tensor([k * cfg.sensor.scan_period for k in range(n)],
+                         device=dev)
+
+    def run(sg, reads=None, replays=None):
+        fused = []
+        for i, blk in enumerate(blocks):
+            p0 = sg.rt.replays
+            mode = ReadCount() if reads is not None else None
+            if mode is not None:
+                mode.__enter__()
+            try:
+                outs = sg.block(*blk, times[i * B:(i + 1) * B],
+                                bootstrap=(i == 0))
+            finally:
+                if mode is not None:
+                    mode.__exit__(None, None, None)
+            if reads is not None:
+                reads.append(mode.reads)
+            if replays is not None:
+                replays.append(sg.rt.replays - p0)
+            fused.append(outs.fused_pose.t)
+        return torch.cat(fused)
+
+    def fresh():
+        return pipeline.init_slam_state(cfg, dev)
+
+    sg = step_graph.StepGraph(fresh(), cfg)
+    (_, t_cap), launches = counted(lambda: timed(lambda: run(sg)))
+    for name, c in launches.items():
+        if c <= 0:
+            fail(f"block graph: kernel {name} was never launched")
+    sg.load(fresh())
+    replays = []
+    fused_b, t_b = timed(lambda: run(sg, replays=replays))
+    sg.load(fresh())
+    reads = []
+    run(sg, reads=reads)
+    gap = float((fused_b - fused_g[:n]).abs().max())
+    log(f"[block graph] {n} main-path scans in blocks of {B} through "
+        f"StepGraph.block: capturing pass {n / t_cap:.2f} scans/s, replayed "
+        f"{n / t_b:.2f} scans/s (per-scan graphs {rate_g:.2f}); graph "
+        f"replays per block {sorted(set(replays))} ({sum(replays)} in the "
+        f"pass); host reads per block {sorted(set(reads))}; largest fused "
+        f"position difference to the per-scan graphs {gap:.3g} m; "
+        f"launches {launches} [{card}]")
+    if not gap == 0.0:
+        fail(f"block graph: {gap:.3g} m from the per-scan graphs")
+    if any(r > 1 for r in reads) or any(r > 2 for r in replays):
+        fail(f"block graph: reads {reads}, replays {replays}")
+    return launches
 
 
 def attempt_graph_phase(first, lcfg, dev, card):
@@ -2219,6 +2437,7 @@ def attempt_graph_phase(first, lcfg, dev, card):
             r0, t0 = rt.reads, time.perf_counter()
             out = loopclosure.close_and_correct(kf, loops, lcfg.loop,
                                                 lcfg.posegraph, rt=rt)
+            rt.flush()
             torch.cuda.synchronize()
         finally:
             posegraph.optimize = timer.fn
@@ -2233,12 +2452,16 @@ def attempt_graph_phase(first, lcfg, dev, card):
         for c in PCG_CHUNKS:
             posegraph.CHUNK = c
             rt = step_graph.GraphRunner(dev)
-            kf, loops = copy(kf0), copy(loops0)
+            kf, loops = rt.adopt((copy(kf0), copy(loops0)))
+            # The first call runs eagerly and captures each chain of
+            # segments; the later calls replay (the third is timed).
             ms_c, _, _, _ = attempt(rt, kf, loops)
-            for dst, src in ((kf, kf0), (loops, loops0)):
-                for a, b in zip(dst, src):
-                    a.copy_(b)
-            ms_g, reads_g, (k_g, _, _, d_g), t_g = attempt(rt, kf, loops)
+            for _ in range(2):
+                for dst, src in ((kf, kf0), (loops, loops0)):
+                    for a, b in zip(dst, src):
+                        a.copy_(b)
+                ms_g, reads_g, (k_g, _, _, d_g), t_g = attempt(rt, kf,
+                                                               loops)
             gap = float((k_g.t[:n] - k_e.t[:n]).abs().max())
             rows.append((c, ms_c, ms_g, t_g.ms[0] if t_g.ms else math.nan,
                          reads_g, t_g.reads[0] if t_g.reads else 0, gap,
@@ -2371,7 +2594,8 @@ def main() -> int:
         f"launches {launches} [{card}]")
     if ate >= 0.2:
         fail(f"main path: fused ATE {ate:.4f} m >= 0.2 m")
-    graph_phase(scans, cfg, dev, card, fused, n_kf)
+    fused_g, rate_g, _ = graph_phase(scans, cfg, dev, card, fused, n_kf)
+    block_launches = block_graph_phase(scans, cfg, dev, card, fused_g, rate_g)
     med = stage_times(scans, cfg, dev)
     log("[stages] median ms per call: " + ", ".join(
         f"{k} {v:.2f}" for k, v in med.items())
@@ -2535,7 +2759,8 @@ def main() -> int:
         cfg.loop, enabled=True, cadence=1.0, min_time_gap=LOOP_TIME_GAP))
     (fused_l, st_l, poses_l, alog, t_loop), path_launches = counted(
         lambda: loop_run(lcfg, dev))
-    paths = {"main": launches, "loop": path_launches}
+    paths = {"main": launches, "block graph": block_launches,
+             "loop": path_launches}
     gt_l = ground_truth(poses_l, LOOP_SCANS)
     ate_l = float(metrics.ate_rmse(fused_l.t, gt_l))
     kf_l = st_l.mapping.kf
@@ -2611,7 +2836,9 @@ def main() -> int:
     (cq, cqv), (hr, hrv) = alog.first["cur"], alog.first["hist"]
     icp_sets = {"loop ICP": (cq, cqv, hr, hrv),
                 "relocalization ICP": reloc_clouds(resumed, lcfg,
-                                                   st_l.mapping.t_aft)}
+                                                   st_l.mapping.t_aft),
+                "relocalization coarse, headings batched":
+                    reloc_coarse_clouds(resumed, lcfg, st_l.mapping.t_aft)}
     for name, (q, qv, r, rv) in icp_sets.items():
         err["knn"] = max(err["knn"], check_knn(
             f"{name} {q.shape[0]} x {r.shape[0]} k=1 ungated", q, qv, r, rv,
@@ -2626,14 +2853,16 @@ def main() -> int:
         f"[{card}]")
 
     attempt_graph_phase(alog.first, lcfg, dev, card)
-    (cg, cc), (fg, fc), pos_gap, cpu_s = attempt_card_vs_cpu(
-        alog.first, lcfg, dev)
+    (cg, cc), (fg, fc), pos_gap, cpu_s, icp_gap, solve_gap = \
+        attempt_card_vs_cpu(alog.first, lcfg, dev)
     fit_rel = abs(fg - fc) / max(abs(fc), 1e-30)
     log(f"[loop parity] first accepted attempt, card vs CPU: closed {cg} / "
         f"{cc}, fitness {fg:.6f} / {fc:.6f} ({fit_rel:.2g} relative), "
         f"largest corrected keyframe position difference {pos_gap:.3g} m "
         f"(bounds: equal flags, fitness {ATTEMPT_FIT_REL} relative, "
-        f"positions {ATTEMPT_POS_TOL} m); CPU {cpu_s:.1f} s")
+        f"positions {ATTEMPT_POS_TOL} m); CPU {cpu_s:.1f} s; split: the "
+        f"ICP's loop measurement {icp_gap:.3g} m, the pose-graph solve "
+        f"alone on the card's factors {solve_gap:.3g} m")
     if cg != cc:
         fail("loop parity: the card and the CPU disagree on the closure")
     if cg and (fit_rel > ATTEMPT_FIT_REL or pos_gap > ATTEMPT_POS_TOL):
@@ -2703,15 +2932,46 @@ def main() -> int:
     if gap_i >= 1e-3:
         fail(f"imu: card vs CPU {gap_i:.3g} m >= 1e-3 m")
 
-    # 10. Relocalization of the resumed session's first scan.
-    sync(dev)
-    t0 = time.perf_counter()
-    (st_r, rdiag), reloc_launches = counted(
-        lambda: relocalize.relocalize_slam_state(resumed, lcfg))
-    sync(dev)
-    t_rel = time.perf_counter() - t0
+    # 10. Relocalization of the resumed session's first scan: the eager
+    #     body, then as captured graphs.
+    def reloc_run(graph):
+        rt = step_graph.make_runner(dev, graph)
+        ((st, d), sec), n = counted(lambda: timed(
+            lambda: relocalize.relocalize_slam_state(resumed, lcfg, rt=rt)))
+        return {"state": st, "diag": d, "launches": n, "s": sec,
+                "reads": rt.reads, "replays": getattr(rt, "replays", 0),
+                "chains": len(getattr(rt, "chains", ()))}
+
+    r_e, r_g = reloc_run(False), reloc_run(True)
+    st_r, rdiag, reloc_launches = r_g["state"], r_g["diag"], r_g["launches"]
+    t_rel = r_g["s"]
     paths["relocalization"] = {k: boot_launches[k] + reloc_launches[k]
                                for k in reloc_launches}
+    k_ref = min(lcfg.reloc.refine_top_k,
+                lcfg.reloc.n_candidates * lcfg.reloc.yaw_hypotheses)
+    read_bound = k_ref * math.ceil(lcfg.reloc.icp_max_iters
+                                   / relocalize.REFINE_CHUNK)
+    de = r_e["diag"]
+    gap = float((st_r.mapping.t_aft.t - r_e["state"].mapping.t_aft.t).norm())
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        segments.leaves(st_r.mapping) + segments.leaves(rdiag),
+        segments.leaves(r_e["state"].mapping) + segments.leaves(de)))
+    log(f"[reloc] eager body {r_e['s']:.3f} s, {r_e['reads']} host reads; "
+        f"captured {t_rel:.3f} s, {r_g['reads']} host reads (bound "
+        f"{read_bound}), {r_g['replays']} graph replays of {r_g['chains']} "
+        f"captured chains; refine ICP in chunks of {relocalize.REFINE_CHUNK} "
+        f"iterations; K3 launches {reloc_launches['knn']} (eager "
+        f"{r_e['launches']['knn']}); captured vs eager: accepted "
+        f"{bool(rdiag.accepted)} / {bool(de.accepted)}, candidate "
+        f"{int(rdiag.candidate)} / {int(de.candidate)}, position "
+        f"{gap:.3g} m, bitwise {bitwise} [{card}]")
+    if bool(rdiag.accepted) != bool(de.accepted) \
+            or int(rdiag.candidate) != int(de.candidate) or not gap < 1e-5:
+        fail("reloc: the captured relocalization disagrees with its eager "
+             "body")
+    if r_g["reads"] > read_bound:
+        fail(f"reloc: {r_g['reads']} host reads > {read_bound}")
+
     # The relocalized position, mapped to the world by the ATE's alignment
     # of the run, is held to the pose where the resumed scan was taken.
     # Also printed: the distance to the run's own fused pose of its last

@@ -227,8 +227,8 @@ def run(args, dev, mesh=None):
     else:
         state = backend.init_state(cfg, dev)
 
-    # The step: captured CUDA graphs on the card with the single-device
-    # backend, the eager body on the CPU and on a mesh.
+    # The step: captured CUDA graphs on the card (a mesh's on NCCL), the
+    # eager body on the CPU and over gloo.
     sg = step_graph.StepGraph(state, cfg, backend)
     del state
     imu_seq = lio.ImuSequence.from_file(args.imu) if args.imu else None
@@ -256,7 +256,8 @@ def run(args, dev, mesh=None):
                                    and (args.relocalize or not args.resume)))
             out = sg.step(*scan, t, **step)
         if k == 0 and args.relocalize:
-            state, rdiag = backend.relocalize(sg.state, cfg)
+            with timer.stage("relocalize"):
+                state, rdiag = backend.relocalize(sg.state, cfg)
             sg.load(state)
             if lead:
                 print(f"[reloc] accepted={bool(rdiag.accepted)} "

@@ -169,14 +169,17 @@ def main(argv=None):
                 run_mapping=(j % cfg.mapping_every == 0) and j > 0,
                 run_loop=sched2.due(t_off + 0.1 * j), bootstrap=(j == 1))
             if j == 0 and use_reloc:
+                t_rel = time.perf_counter()
                 st, diag = relocalize.relocalize_slam_state(sg.state, cfg)
                 sg.load(st)
                 reloc_diag.update(accepted=bool(diag.accepted),
                                   candidate=int(diag.candidate),
-                                  fitness=float(diag.fitness))
+                                  fitness=float(diag.fitness),
+                                  seconds=time.perf_counter() - t_rel)
                 print(f"  reloc: accepted={reloc_diag['accepted']} "
                       f"candidate={reloc_diag['candidate']} "
-                      f"fitness={reloc_diag['fitness']:.4f}", flush=True)
+                      f"fitness={reloc_diag['fitness']:.4f} "
+                      f"({reloc_diag['seconds']:.3f} s)", flush=True)
                 out = out._replace(fused_pose=Pose(
                     st.mapping.t_aft.R.clone(), st.mapping.t_aft.t.clone()))
             fused.append(out.fused_pose.t)

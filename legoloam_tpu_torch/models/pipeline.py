@@ -13,13 +13,14 @@ drivers below are also the distributed drivers.
 read between two only where a decision picks what runs next (the submap
 branch, a loop attempt's chunk loops; ``ops/segments.py``).
 ``slam_scan_step`` runs it eagerly; the drivers run it through
-``step_graph.StepGraph``, which on the card with the single-device backend
-replays each segment as a captured CUDA graph, as the JAX package runs the
-step as one compiled program.
+``step_graph.StepGraph``, which on the card with a capturable backend
+replays the segments between two reads as one captured CUDA graph, as the
+JAX package runs the step as one compiled program.
 
-The JAX package's block drivers fuse B scans into one XLA program to save
-dispatches; here they are loops over the streaming step, so their outputs
-equal the streaming driver's and their API is kept for parity.
+The JAX package's block driver fuses B scans into one XLA program to save
+dispatches; ``slam_scan_block`` runs B step bodies through
+``StepGraph.block``, whose graphs hold the whole block but for the submap
+branch's read, and whose outputs equal B streaming steps'.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from ..ops import features as feat_ops
 from ..ops import projection, se3, segmentation
 from ..ops.features import ScanFeatures
 from ..ops.se3 import Pose
-from ..ops.segments import EAGER
+from ..ops.segments import EAGER, Eager
 from . import fusion as fusion_mod
 from . import loopclosure as loop_mod
 from . import mapping as mapping_mod
@@ -173,7 +174,8 @@ class Backend:
     class) or over the ranks of a mesh
     (``parallel.pipeline_dist.MeshBackend``).  The frontend, odometry and
     fusion are the same for both.  ``capturable``: the step can run as CUDA
-    graphs (a mesh's collectives cannot be captured)."""
+    graphs (a mesh's on NCCL only: gloo's collectives cannot be
+    captured)."""
 
     map_hooks = mapping_mod.LOCAL
     capturable = True
@@ -305,10 +307,12 @@ def slam_scan_step(state: SlamState, points, valid, ring,
                    run_loop: bool = False,
                    imu_integral: Optional[deskew_ops.ImuIntegral] = None,
                    bootstrap: bool = False, backend: Backend = SINGLE,
-                   rt=EAGER):
+                   rt=None):
     """One full SLAM step on the state's device, run eagerly (the
     functional step; the drivers run the same body through
-    ``step_graph.StepGraph``; ``rt`` the segment runner).  ``bootstrap`` (pass it on scan index 1):
+    ``step_graph.StepGraph``; ``rt`` the segment runner, by default one
+    that reads through the backend's ``map_hooks.read``).  ``bootstrap``
+    (pass it on scan index 1):
     re-seed and re-solve the odometry twice before the final solve, as the
     JAX package does.  With ``imu_integral``: de-skew, the gyro's rotation
     as the odometry seed (translation keeps the constant-velocity prior)
@@ -323,6 +327,8 @@ def slam_scan_step(state: SlamState, points, valid, ring,
     scan_time = torch.as_tensor(scan_time, dtype=torch.float32, device=dev)
     if imu_integral is not None:
         imu_integral = _on(imu_integral, dev)
+    if rt is None:
+        rt = Eager(backend.map_hooks.read)
     return step_body(state, points, valid, ring, scan_time, cfg, run_mapping,
                      run_loop, imu_integral, bootstrap, backend, rt)
 
@@ -350,29 +356,23 @@ def slam_scan_block(state: SlamState, points, valid, ring,
                     graph: bool = True):
     """B consecutive scans ((B, P, 3), (B, P), (B, P), times (B,)): the
     scan-to-map step (and, with ``run_loop``, a loop-closure attempt) on the
-    block's first scan, odometry and fusion on every scan — B steps through
-    ``step_graph.StepGraph`` (``graph=False``: the eager body), outputs
+    block's first scan, odometry and fusion on every scan — B step bodies
+    through ``StepGraph.block`` (on the card one graph before the submap
+    branch's read and one after; ``graph=False``: the eager body), outputs
     stacked on a leading axis.  The returned state is the step graph's:
     pass it to the next block to replay the same graphs.
     ``imu_integrals``: each field stacked on a leading B axis.
     ``bootstrap`` (the first block of a run) applies the scan-1
     double-resolve, so it needs B >= 2."""
-    n = points.shape[0]
-    if bootstrap and n < 2:
+    if bootstrap and points.shape[0] < 2:
         raise ValueError(
             "slam_scan_block(bootstrap=True) needs a block of >= 2 scans (the "
             "double-resolve applies to scan index 1; use the streaming "
             "driver)")
     sg = _stepper(state, cfg, backend, graph)
-    outs = []
-    for j in range(n):
-        integ = None if imu_integrals is None else type(imu_integrals)(
-            *(a[j] for a in imu_integrals))
-        outs.append(sg.step(
-            points[j], valid[j], ring[j], scan_times[j],
-            run_mapping=(j == 0), run_loop=(run_loop and j == 0),
-            imu_integral=integ, bootstrap=(bootstrap and j == 1)))
-    return sg.state, _stack(outs)
+    outs = sg.block(points, valid, ring, scan_times, run_loop, imu_integrals,
+                    bootstrap)
+    return sg.state, outs
 
 
 def maybe_decimate(state: SlamState, cfg: PipelineConfig, margin: int = 16):

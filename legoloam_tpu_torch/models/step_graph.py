@@ -1,16 +1,25 @@
 """The per-scan SLAM step as captured CUDA graphs: the port's counterpart of
-the JAX package's compiled ``slam_scan_step`` (``jax.jit`` with the statics
-``cfg``, ``run_loop``, ``bootstrap``; ``legoloam_tpu/models/pipeline.py``).
+the JAX package's compiled ``slam_scan_step`` and ``slam_scan_block``
+(``jax.jit`` with the statics ``cfg``, ``run_loop``, ``bootstrap`` and the
+block length; ``legoloam_tpu/models/pipeline.py``).
 
 ``StepGraph`` owns a static SLAM state and static input buffers and runs
-``pipeline.step_body`` through a runner whose segments are CUDA graphs:
+``pipeline.step_body`` through a runner whose graphs are CUDA graphs:
 
-  * each segment is captured the first time it runs, keyed like the JAX
-    statics — (run_mapping, run_loop, bootstrap, imu), and the submap
-    branch for the mapping segments.  That first run is the step's real
-    work, done eagerly on the capture stream (the warm-up: it builds the
-    kernel library and sets the kernels' attributes); the capture follows
-    and every later occurrence replays.  All graphs share one memory pool.
+  * a segment (``ops/segments.py``) is known by its key — like the JAX
+    statics: (run_mapping, run_loop, bootstrap, imu), the submap branch —
+    and by its argument buffers.  Its first run is real work, done eagerly
+    on the capture stream (the warm-up: it builds the kernel library, sets
+    the kernels' attributes, creates a communicator), and binds its result
+    buffers.
+  * the segments between two boundaries — a host read, a cut, the end of
+    a step or a block — form a chain.  A chain seen for the first time
+    runs eagerly and is captured as ONE graph at its end; every later
+    time it is deferred to its end and replayed.  So a non-mapping step
+    is one replay, a mapping step two (the submap branch is read between
+    them), and a block of B scans without a loop attempt two: scan 0's
+    front, the read, then everything else.  All graphs share one memory
+    pool.
   * every value that crosses a segment boundary lives in a buffer made
     outside the pool (the state, the inputs, each segment's result), so
     the graphs can run in any order; only temporaries live in the pool.
@@ -22,10 +31,10 @@ The keyframe store stays the one in-place buffer: the mapping segment
 writes a keyframe's row into it, and nothing copies it a step.  A replay
 counts the kernel launches its capture recorded (``ops/_native.py``).
 
-On the CPU, on a mesh (``parallel.pipeline_dist.MeshBackend``: its
-collectives cannot be captured) and with ``graph=False`` the same body runs
-eagerly.  On the card with the single-device backend a failed capture or
-replay raises; nothing falls back to the eager body.
+On the CPU, over gloo (``parallel.pipeline_dist.MeshBackend`` is
+capturable on NCCL only) and with ``graph=False`` the same body runs
+eagerly.  On the card a failed capture or replay raises; nothing falls
+back to the eager body.
 """
 
 from __future__ import annotations
@@ -42,94 +51,191 @@ from .pipeline import SINGLE, Backend, SlamOutput
 
 
 @dataclass
-class _Seg:
-    out: object                        # the static result tree
-    ptrs: tuple                        # the argument buffers it reads
+class _Chain:
     graph: torch.cuda.CUDAGraph | None = None
     launches: dict | None = None       # kernel launches a replay makes
 
 
 class StaticRunner(Eager):
-    """Segments over static buffers, each run again as a plain call: the
+    """Segments over static buffers, chained between boundaries: the
     graph runner's dataflow on any device (the CPU tests drive it).  A
-    segment's first run binds its result buffers; a later run must read
-    the same argument buffers and writes its result into them."""
+    segment's first run binds its result buffers.  A chain seen for the
+    first time runs segment by segment as it comes and is then "captured"
+    (recorded for later; on the CPU nothing is kept); a chain that matches
+    a captured one is deferred to its end and replayed there (on the CPU
+    each segment run again as a plain call, writing into its buffers).
 
-    def __init__(self):
-        super().__init__()
-        self.segs: dict = {}
+    Every argument of a segment must lie in a static buffer: one that was
+    adopted (``adopt``) or a segment's result, or a view of either.  A
+    tensor that eager code computed between two segments would read
+    results the deferred chain has not yet written, so it raises."""
+
+    def __init__(self, read_fn=None):
+        super().__init__(read_fn)
+        self.static: set = set()   # storages of the static buffers
+        self.segs: dict = {}       # (key, argument pointers) -> (id, out)
+        self.chains: dict = {}     # tuple of segment ids -> _Chain
+        self.prefixes: set = set()  # every prefix of a captured chain
+        self.replays = 0
+        self._open()
+
+    def _open(self) -> None:
+        self.pending: list = []    # (id, fn, args, out) of the open chain
+        self.ran = 0               # how many of them have run
+        self.ids: tuple = ()
+
+    def adopt(self, tree):
+        self.static.update(_storages(tree))
+        return tree
 
     def seg(self, key, fn, *args, into=None):
-        ptrs = tuple(t.data_ptr() for t in leaves(args))
-        s = self.segs.get(key)
+        stray = _storages(args) - self.static
+        if stray:
+            raise ValueError(
+                f"segment {key}: {len(stray)} argument(s) outside the static "
+                "buffers (adopt the state and inputs; compute inside a "
+                "segment what depends on another segment's result)")
+        ident = (key, tuple(t.data_ptr() for t in leaves(args)))
+        s = self.segs.get(ident)
         if s is None:
-            s = self.segs[key] = self._first(key, fn, args, into, ptrs)
-            return s.out
-        if s.ptrs != ptrs:
-            raise RuntimeError(f"segment {key}: its arguments are not the "
-                               "buffers it first ran with")
-        self._again(s, fn, args)
-        return s.out
+            self._run_pending()
+            out = self._warm(fn, args, into)
+            s = self.segs[ident] = (len(self.segs), out)
+            self.ran += 1
+        else:
+            out = s[1]
+            if self.ran or self.ids + (s[0],) not in self.prefixes:
+                # Not (or no longer) a captured chain: run as it comes.
+                self._run_pending()
+                self._run(fn, args, out)
+                self.ran += 1
+        self.pending.append((s[0], fn, args, out))
+        self.ids += (s[0],)
+        return out
 
-    def _first(self, key, fn, args, into, ptrs) -> _Seg:
+    def _run_pending(self) -> None:
+        for _, fn, args, out in self.pending[self.ran:]:
+            self._run(fn, args, out)
+        self.ran = len(self.pending)
+
+    def _run(self, fn, args, out) -> None:
+        copy_tree(out, fn(*args))
+
+    def _warm(self, fn, args, into):
         out = fn(*args)
         static = bind(into, out)
         copy_tree(static, out)
-        return _Seg(static, ptrs)
+        return self.adopt(static)
 
-    def _again(self, s: _Seg, fn, args) -> None:
-        copy_tree(s.out, fn(*args))
+    def flush(self) -> None:
+        if not self.pending:
+            return
+        pending, ids, ran = self.pending, self.ids, self.ran
+        self._open()
+        chain = self.chains.get(ids)
+        if chain is not None and not ran:
+            self._replay(chain, pending)
+            return
+        for _, fn, args, out in pending[ran:]:
+            self._run(fn, args, out)
+        if chain is None:
+            self.chains[ids] = self._capture(pending)
+            self.prefixes.update(ids[:i] for i in range(1, len(ids) + 1))
+
+    def _capture(self, pending) -> _Chain:
+        return _Chain()
+
+    def _replay(self, chain: _Chain, pending) -> None:
+        for _, fn, args, out in pending:
+            self._run(fn, args, out)
+        self.replays += 1
 
 
 class GraphRunner(StaticRunner):
-    """Segments as CUDA graphs over static buffers: the first run is the
-    eager warm-up on the capture stream, then the capture; later runs
-    replay (see the module docstring)."""
+    """Chains of segments as CUDA graphs over static buffers: a segment's
+    first run is the eager warm-up on the capture stream; a chain seen for
+    the first time runs eagerly and is captured at its end, and replayed
+    every later time (see the module docstring)."""
 
-    def __init__(self, device):
-        super().__init__()
+    def __init__(self, device, read_fn=None):
         self.device = torch.device(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
-        self.replays = 0
+        super().__init__(read_fn)
 
-    def _first(self, key, fn, args, into, ptrs) -> _Seg:
+    def _warm(self, fn, args, into):
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
-            s = super()._first(key, fn, args, into, ptrs)
+            out = super()._warm(fn, args, into)
+        torch.cuda.synchronize(self.device)
+        return out
+
+    def _capture(self, pending) -> _Chain:
+        """Record the chain (its work was just done eagerly)."""
         torch.cuda.synchronize(self.device)
         before = _native.counts()
-        s.graph = torch.cuda.CUDAGraph()
+        chain = _Chain(graph=torch.cuda.CUDAGraph())
         try:
-            with torch.cuda.graph(s.graph, pool=self.pool,
-                                  stream=self.stream):
-                copy_tree(s.out, fn(*args))
+            with torch.cuda.stream(self.stream):
+                # thread_local: a communicator's watchdog thread may query
+                # its events while this thread captures.
+                chain.graph.capture_begin(self.pool,
+                                          capture_error_mode="thread_local")
+                try:
+                    for _, fn, args, out in pending:
+                        copy_tree(out, fn(*args))
+                finally:
+                    chain.graph.capture_end()
         except Exception as e:
-            raise RuntimeError(f"CUDA graph capture of segment {key} "
-                               f"failed: {e}") from e
+            names = {i: key for (key, _), (i, _) in self.segs.items()}
+            raise RuntimeError(
+                "CUDA graph capture of the chain "
+                f"{[names[p[0]] for p in pending]} failed: {e}") from e
         after = _native.counts()
-        s.launches = {n: after[n] - before[n] for n in after
-                      if after[n] != before[n]}
-        _native.add_counts({n: -c for n, c in s.launches.items()})
-        return s
+        chain.launches = {n: after[n] - before[n] for n in after
+                          if after[n] != before[n]}
+        _native.add_counts({n: -c for n, c in chain.launches.items()})
+        return chain
 
-    def _again(self, s: _Seg, fn, args) -> None:
-        s.graph.replay()
-        _native.add_counts(s.launches)
+    def _replay(self, chain: _Chain, pending) -> None:
+        chain.graph.replay()
+        _native.add_counts(chain.launches)
         self.replays += 1
+
+
+def _storages(tree) -> set:
+    """The storage addresses of a tree's non-empty tensors."""
+    return {t.untyped_storage().data_ptr() for t in leaves(tree)
+            if t.numel()}
+
+
+def make_runner(device, graph: bool = True, read_fn=None) -> Eager:
+    """The runner a program (a step, a relocalization) owns on ``device``:
+    a ``GraphRunner`` on the card with ``graph``, else the eager one."""
+    if graph and torch.device(device).type == "cuda":
+        return GraphRunner(device, read_fn)
+    return Eager(read_fn)
+
+
+def _put_row(j: int, out, rows):
+    """Scan ``j``'s outputs into row ``j`` of the block's output tree, in
+    place."""
+    for d, s in zip(leaves(rows), leaves(out), strict=True):
+        d[j].copy_(s)
+    return rows
 
 
 class StepGraph:
     """The per-scan step over a static state: ``step`` runs one scan,
-    ``state`` is the state (its buffers are reused by the next step: copy
-    what must outlive it), ``load`` copies a state in (a resumed
-    checkpoint, a decimated store, a relocalized state).
+    ``block`` B scans, ``state`` is the state (its buffers are reused by
+    the next step: copy what must outlive it), ``load`` copies a state in
+    (a resumed checkpoint, a decimated store, a relocalized state).
 
-    ``graph``: replay captured CUDA graphs on the card with the
-    single-device backend (``False`` runs the eager body there, the
-    reference that ``chip_smoke.py`` holds the graphs against).  The
-    state given is adopted, not copied."""
+    ``graph``: replay captured CUDA graphs on the card with a capturable
+    backend (``False`` runs the eager body there, the reference that
+    ``chip_smoke.py`` holds the graphs against).  The state given is
+    adopted, not copied."""
 
     def __init__(self, state, cfg: PipelineConfig, backend: Backend = SINGLE,
                  graph: bool = True, runner: StaticRunner | None = None):
@@ -138,17 +244,16 @@ class StepGraph:
         self.device = state.odom.xi.device
         # ``runner``: a ``StaticRunner`` to drive the static-buffer path
         # where there is no card (the CPU tests).
-        self.captured = runner is not None or bool(
-            graph and self.device.type == "cuda" and backend.capturable)
+        read_fn = backend.map_hooks.read
         if runner is not None:
+            runner.read_fn = read_fn
             self.rt = runner
-        elif self.captured:
-            self.rt = GraphRunner(self.device)
         else:
-            self.rt = Eager()
-        self._state = state
-        self._inputs = None
-        self._imu = None
+            self.rt = make_runner(self.device, graph and backend.capturable,
+                                  read_fn)
+        self.captured = isinstance(self.rt, StaticRunner)
+        self._state = self.rt.adopt(state)
+        self._inputs: dict = {}
 
     @property
     def state(self):
@@ -167,6 +272,21 @@ class StepGraph:
         else:
             self._state = state
 
+    def _static(self, name, tree):
+        """``tree`` (tensors or a NamedTuple of them) copied into the
+        static input buffers kept under ``name`` and its shapes."""
+        key = (name, tuple(t.shape for t in leaves(tree)))
+        buf = self._inputs.get(key)
+        if buf is None:
+            buf = self._inputs[key] = self.rt.adopt(
+                map_tree(lambda t: t.clone(), tree))
+        else:
+            copy_tree(buf, tree)
+        return buf
+
+    def _on(self, *arrays):
+        return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
+
     def step(self, points, valid, ring, scan_time, run_mapping: bool,
              run_loop: bool = False, imu_integral=None,
              bootstrap: bool = False) -> SlamOutput:
@@ -178,24 +298,59 @@ class StepGraph:
                 run_mapping, run_loop, imu_integral, bootstrap, self.backend,
                 rt=self.rt)
             return out
-        dev = self.device
-        inputs = tuple(torch.as_tensor(a, device=dev)
-                       for a in (points, valid, ring))
-        if self._inputs is None:
-            self._inputs = tuple(a.clone() for a in inputs) + (
-                torch.zeros((), device=dev),)
-        else:
-            copy_tree(self._inputs[:3], inputs)
-        self._inputs[3].fill_(float(scan_time))
+        scan = self._static("scan", self._on(points, valid, ring) + (
+            torch.full((), float(scan_time), device=self.device),))
         if imu_integral is not None:
-            imu_integral = pipeline._on(imu_integral, dev)
-            if self._imu is None:
-                self._imu = map_tree(lambda t: t.clone(), imu_integral)
-            else:
-                copy_tree(self._imu, imu_integral)
-            imu_integral = self._imu
+            imu_integral = self._static(
+                "imu", pipeline._on(imu_integral, self.device))
         state, out = pipeline.step_body(
-            self._state, *self._inputs, self.cfg, run_mapping, run_loop,
+            self._state, *scan, self.cfg, run_mapping, run_loop,
             imu_integral, bootstrap, self.backend, rt=self.rt)
+        self.rt.flush()
         assert all(a is b for a, b in zip(leaves(state), leaves(self._state)))
         return map_tree(lambda x: x.clone(), out)
+
+    def block(self, points, valid, ring, scan_times, run_loop: bool = False,
+              imu_integrals=None, bootstrap: bool = False) -> SlamOutput:
+        """B consecutive scans ((B, P, 3), (B, P), (B, P), times (B,)),
+        ``pipeline.slam_scan_block``'s contract: mapping (and with
+        ``run_loop`` a loop attempt) on scan 0, the bootstrap on scan 1.
+        Captured, the block's inputs are static (B, ...) buffers and its
+        outputs a static (B, ...) tree written row by row inside the
+        graphs; returns a copy of it."""
+        n = points.shape[0]
+        dev = self.device
+        scans = self._on(points, valid, ring) + (torch.as_tensor(
+            scan_times, dtype=torch.float32, device=dev),)
+        if imu_integrals is not None:
+            imu_integrals = pipeline._on(imu_integrals, dev)
+        if self.captured:
+            scans = self._static("block", scans)
+            if imu_integrals is not None:
+                imu_integrals = self._static("block imu", imu_integrals)
+        rows = None
+        state = self._state
+        for j in range(n):
+            integ = None if imu_integrals is None else type(imu_integrals)(
+                *(a[j] for a in imu_integrals))
+            state, out = pipeline.step_body(
+                state, *(a[j] for a in scans), self.cfg, j == 0,
+                run_loop and j == 0, integ, bootstrap and j == 1,
+                self.backend, rt=self.rt)
+            if rows is None:
+                rows = self._inputs.get(("block out", n)) if self.captured \
+                    else None
+                if rows is None:
+                    rows = map_tree(lambda t: t.new_zeros((n, *t.shape)),
+                                    out)
+                    if self.captured:
+                        self._inputs[("block out", n)] = self.rt.adopt(rows)
+            rows = self.rt.seg(("block", "row", j, n),
+                               lambda o, r, j=j: _put_row(j, o, r), out,
+                               rows, into=rows)
+        self.rt.flush()
+        if self.captured:
+            assert all(a is b for a, b in zip(leaves(state),
+                                              leaves(self._state)))
+        self._state = state
+        return map_tree(lambda x: x.clone(), rows)

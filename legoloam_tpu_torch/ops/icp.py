@@ -14,6 +14,12 @@ The JAX ``while_loop`` becomes chunks of ``chunk`` iterations, each
 iteration frozen (its old values selected by ``where``) once the eps test
 fired or the cap was reached, so the result equals the per-iteration loop;
 one host read of the stop flag after each chunk (``ops/segments.py``).
+
+``icp_start``, ``icp_iterate`` and ``icp_result`` also take a batch of
+solves against one target (``src`` (..., N, 3), a state per solve): the
+relocalization's headings of one candidate.  Their queries go to K3 as one
+search, which is exact per query, and each solve's sums and rotation are
+taken over its own rows, so each solve is the one it would be alone.
 """
 
 from __future__ import annotations
@@ -48,65 +54,78 @@ class IcpResult(NamedTuple):
 
 def kabsch_rotation(H: torch.Tensor) -> torch.Tensor:
     """The rotation R maximising tr(R H) for the cross-covariance
-    H = Σ x yᵀ (so R x ≈ y); the identity for H = 0."""
+    H = Σ x yᵀ (so R x ≈ y), (..., 3, 3); the identity for H = 0."""
     return smallalg.kabsch_horn(H)
 
 
 def _corr_stats(T: Pose, src, src_valid, dst, dst_valid, max_corr_sq: float):
+    """Each source point moved by its solve's ``T`` and its nearest valid
+    target (one K3 search for the whole batch)."""
     moved = se3.transform_points(T, src)
-    d, i = knn(moved, src_valid, dst, dst_valid, k=1)
-    match = src_valid & (d[:, 0] < max_corr_sq)
-    return moved, dst[i[:, 0]], match, d[:, 0]
+    d, i = knn(moved.reshape(-1, 3), src_valid.reshape(-1), dst, dst_valid,
+               k=1)
+    d = d[:, 0].reshape(src_valid.shape)
+    match = src_valid & (d < max_corr_sq)
+    return moved, dst[i[:, 0]].reshape(moved.shape), match, d
 
 
 class IcpState(NamedTuple):
-    R: torch.Tensor          # (3, 3) current transform
-    t: torch.Tensor          # (3,)
-    prev_err: torch.Tensor   # () the last iteration's mean squared error
-    done: torch.Tensor       # () bool: the eps test fired
-    it: torch.Tensor         # () int32 iterations run
-    stop: torch.Tensor       # () bool: done or at the cap
+    R: torch.Tensor          # (..., 3, 3) current transform
+    t: torch.Tensor          # (..., 3)
+    prev_err: torch.Tensor   # (...) the last iteration's mean squared error
+    done: torch.Tensor       # (...) bool: the eps test fired
+    it: torch.Tensor         # (...) int32 iterations run
+    stop: torch.Tensor       # (...) bool: done or at the cap
 
 
 def icp_start(init: Pose, frozen=None, max_iters: int = 1) -> IcpState:
-    """The state before the first iteration; ``frozen`` (a () bool) stops
-    it before it starts (no candidate to align), as does ``max_iters``
-    below 1."""
+    """The state before the first iteration, a solve per leading index of
+    ``init``; ``frozen`` (bool, broadcast to them) stops a solve before it
+    starts (no candidate to align), as does ``max_iters`` below 1."""
     dev = init.t.device
-    stop = torch.full((), max_iters < 1, dtype=torch.bool, device=dev)
+    batch = init.t.shape[:-1]
+    stop = torch.full(batch, max_iters < 1, dtype=torch.bool, device=dev)
     if frozen is not None:
         stop = stop | frozen
     return IcpState(R=init.R.clone(), t=init.t.clone(),
-                    prev_err=torch.full((), math.inf, device=dev),
-                    done=torch.zeros((), dtype=torch.bool, device=dev),
-                    it=torch.zeros((), dtype=torch.int32, device=dev),
+                    prev_err=torch.full(batch, math.inf, device=dev),
+                    done=torch.zeros(batch, dtype=torch.bool, device=dev),
+                    it=torch.zeros(batch, dtype=torch.int32, device=dev),
                     stop=stop)
 
 
 def icp_iterate(st: IcpState, src, src_valid, dst, dst_valid, n: int,
                 max_iters: int, eps: float, max_corr_sq: float) -> IcpState:
-    """``n`` iterations, each a no-op once ``stop`` is set."""
+    """``n`` iterations of each solve, each a no-op once its ``stop`` is
+    set."""
+    if src.dim() == 2:
+        # One solve runs as a batch of one: the same small batched
+        # products, so each solve of a batch equals its solve alone.
+        st = icp_iterate(IcpState(*(a[None] for a in st)), src[None],
+                         src_valid[None], dst, dst_valid, n, max_iters, eps,
+                         max_corr_sq)
+        return IcpState(*(a[0] for a in st))
     for _ in range(n):
         active = ~st.stop
+        a1, a2 = active[..., None], active[..., None, None]
         T = Pose(st.R, st.t)
         # A stopped iteration searches with no live query (K3 skips it).
-        moved, target, match, d = _corr_stats(T, src, src_valid & active,
+        moved, target, match, d = _corr_stats(T, src, src_valid & a1,
                                               dst, dst_valid, max_corr_sq)
         w = match.to(torch.float32)
-        wsum = torch.clamp(torch.sum(w), min=1.0)
-        mu_s = torch.sum(moved * w[:, None], dim=0) / wsum
-        mu_t = torch.sum(target * w[:, None], dim=0) / wsum
-        X = (moved - mu_s) * w[:, None]
-        Y = target - mu_t
-        R_delta = kabsch_rotation(X.T @ Y)
+        wsum = torch.clamp(torch.sum(w, dim=-1), min=1.0)
+        mu_s = torch.sum(moved * w[..., None], dim=-2) / wsum[..., None]
+        mu_t = torch.sum(target * w[..., None], dim=-2) / wsum[..., None]
+        X = (moved - mu_s[..., None, :]) * w[..., None]
+        Y = target - mu_t[..., None, :]
+        R_delta = kabsch_rotation(X.transpose(-1, -2) @ Y)
         t_delta = mu_t - se3.rotate_vec(R_delta, mu_s)
-        err = torch.sum(d * w) / wsum
+        err = torch.sum(d * w, dim=-1) / wsum
         done = torch.abs(st.prev_err - err) < eps
         it = st.it + active.to(torch.int32)
         st = IcpState(
-            R=torch.where(active, R_delta @ T.R, st.R),
-            t=torch.where(active, se3.rotate_vec(R_delta, T.t) + t_delta,
-                          st.t),
+            R=torch.where(a2, R_delta @ T.R, st.R),
+            t=torch.where(a1, se3.rotate_vec(R_delta, T.t) + t_delta, st.t),
             prev_err=torch.where(active, err, st.prev_err),
             done=torch.where(active, done, st.done), it=it,
             stop=st.stop | (active & (done | (it >= max_iters))))
@@ -115,11 +134,16 @@ def icp_iterate(st: IcpState, src, src_valid, dst, dst_valid, n: int,
 
 def icp_result(st: IcpState, src, src_valid, dst, dst_valid,
                max_corr_sq: float) -> "IcpResult":
+    if src.dim() == 2:
+        res = icp_result(IcpState(*(a[None] for a in st)), src[None],
+                         src_valid[None], dst, dst_valid, max_corr_sq)
+        return IcpResult(Pose(res.pose.R[0], res.pose.t[0]),
+                         *(a[0] for a in res[1:]))
     T = Pose(st.R, st.t)
     _, _, match, d = _corr_stats(T, src, src_valid, dst, dst_valid,
                                  max_corr_sq)
-    n_corr = torch.sum(match)
-    fitness = torch.sum(torch.where(match, d, torch.zeros_like(d))) \
+    n_corr = torch.sum(match, dim=-1)
+    fitness = torch.sum(torch.where(match, d, torch.zeros_like(d)), dim=-1) \
         / torch.clamp(n_corr, min=1)
     has_converged = n_corr > 10
     return IcpResult(pose=T, fitness=fitness, has_converged=has_converged,

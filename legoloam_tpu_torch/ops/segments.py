@@ -4,10 +4,12 @@ A function that the step runs is written as calls of ``rt.seg(key, fn,
 *args, into=...)`` — a piece of straight-line tensor code, no host read
 inside — separated by ``rt.read(x, what)``, the host value of a 0-d tensor
 that decides what runs next (which submap branch, whether a chunk of an
-iterative solve was the last).  ``EAGER`` runs each segment as a plain call
-and reads with ``.item()``.  ``models/step_graph.py`` runs the same code
-with each segment a captured CUDA graph over static buffers, so the step's
-logic has one copy.
+iterative solve was the last), and by ``rt.cut()``, a graph boundary with
+no read (each pass of a body replayed many times: a relocalization
+candidate).  ``EAGER`` runs each segment as a plain call and reads with
+``.item()``.  ``models/step_graph.py`` runs the same code with the
+segments between two boundaries one captured CUDA graph over static
+buffers, so the step's logic has one copy.
 
 A segment's ``args`` and its result are trees of tensors (NamedTuples,
 tuples, None).  Under a graph runner every tensor of ``args`` must be a
@@ -24,11 +26,13 @@ import torch
 
 
 class Eager:
-    """Segments as plain calls, decisions read back with ``.item()``;
-    ``reads`` counts the reads."""
+    """Segments as plain calls, decisions read back with ``read_fn``
+    (default ``.item()``; a mesh's ``Mesh.read``); ``reads`` counts the
+    reads."""
 
-    def __init__(self):
+    def __init__(self, read_fn: Callable | None = None):
         self.reads = 0
+        self.read_fn = read_fn
 
     def seg(self, key, fn: Callable, *args, into=None):
         """``fn(*args)``; ``key`` names the segment (with every static
@@ -37,8 +41,25 @@ class Eager:
 
     def read(self, x: torch.Tensor, what: str = ""):
         """The host value of the 0-d tensor ``x``; ``what`` names it."""
+        self.flush()
         self.reads += 1
-        return x.item()
+        return x.item() if self.read_fn is None else self.read_fn(x, what)
+
+    def adopt(self, tree):
+        """Declare ``tree``'s tensors static buffers that segments may
+        take as arguments (the state, a program's inputs); returns it.  A
+        graph runner refuses any other argument that is not a segment's
+        result or a view of one."""
+        return tree
+
+    def cut(self) -> None:
+        """A graph boundary: the segments since the last boundary are one
+        graph (a plain call runs at once: nothing to do)."""
+        self.flush()
+
+    def flush(self) -> None:
+        """Run what was deferred, so every segment's result is written
+        (before a read, after a step)."""
 
 
 EAGER = Eager()

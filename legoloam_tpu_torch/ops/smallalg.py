@@ -154,14 +154,15 @@ def _round_robin(n: int):
 
 def jacobi_eigen(A: torch.Tensor, sweeps: int):
     """Eigenvalues (unordered) and eigenvectors (columns, in the same order)
-    of a symmetric (n, n) matrix, n even, by parallel cyclic Jacobi: each
-    round rotates n/2 disjoint (p, q) planes at once, each rotation the
-    smaller angle that zeroes A[p, q]; ``sweeps`` sweeps of n-1 rounds.
+    of symmetric (..., n, n) matrices, n even, by parallel cyclic Jacobi:
+    each round rotates n/2 disjoint (p, q) planes at once, each rotation
+    the smaller angle that zeroes A[p, q]; ``sweeps`` sweeps of n-1 rounds.
     No data-dependent control flow and no library solver (whose error
     check reads back to the host), so it can run inside a CUDA graph."""
     n = A.shape[-1]
+    batch = A.shape[:-2]
     dev, dt = A.device, A.dtype
-    V = torch.eye(n, dtype=dt, device=dev)
+    V = torch.eye(n, dtype=dt, device=dev).expand(*batch, n, n)
     rounds = []
     for pairs in _round_robin(n):
         p = tuple(a for a, _ in pairs)
@@ -174,15 +175,16 @@ def jacobi_eigen(A: torch.Tensor, sweeps: int):
                        const(flat, dev, torch.int64)))
     for _ in range(sweeps):
         for p, q, flat in rounds:
-            app, aqq, apq = A[p, p], A[q, q], A[p, q]
+            app, aqq, apq = A[..., p, p], A[..., q, q], A[..., p, q]
             theta = 0.5 * torch.atan(2.0 * apq / (aqq - app))
             theta = torch.where(apq == 0, torch.zeros_like(theta), theta)
             c, s = torch.cos(theta), torch.sin(theta)
-            J = torch.zeros(n * n, dtype=dt, device=dev).index_put(
-                (flat,), torch.cat([c, c, s, -s])).reshape(n, n)
-            A = J.T @ A @ J
+            J = torch.zeros(*batch, n * n, dtype=dt, device=dev).index_copy(
+                -1, flat, torch.cat([c, c, s, -s], dim=-1)).reshape(
+                    *batch, n, n)
+            A = J.transpose(-1, -2) @ A @ J
             V = V @ J
-    return torch.diagonal(A), V
+    return torch.diagonal(A, dim1=-2, dim2=-1), V
 
 
 # Horn's symmetric 4x4 N(H) as a linear map of H's 9 entries (row-major,
@@ -231,12 +233,24 @@ def kabsch_horn(H: torch.Tensor, sweeps: int = 5) -> torch.Tensor:
     H = Σ x yᵀ (so R x ≈ y), by Horn's quaternion method: the unit
     eigenvector of the largest eigenvalue of the symmetric 4x4 N(H)
     (Jacobi, ``sweeps`` sweeps).  On ties the first eigenvector wins, so
-    H = 0 gives the identity, as the SVD form does."""
+    H = 0 gives the identity, as the SVD form does.  ``H`` (..., 3, 3): a
+    batch (the relocalization's headings) solves each as it would alone
+    (a single matrix runs as a batch of one, and the two linear maps are
+    elementwise products and sums, whose order does not depend on the
+    batch)."""
+    if H.dim() == 2:
+        # As a batch of one: the same small batched products as a batch.
+        return kabsch_horn(H[None], sweeps)[0]
     dev, dt = H.device, H.dtype
-    N = (_linear_map(_HORN_N, 16, 9, dev, dt, mirror=4)
-         @ H.reshape(9)).reshape(4, 4)
+    batch = H.shape[:-2]
+    Nmap = _linear_map(_HORN_N, 16, 9, dev, dt, mirror=4)
+    N = torch.sum(H.reshape(*batch, 1, 9) * Nmap, dim=-1).reshape(
+        *batch, 4, 4)
     evals, V = jacobi_eigen(N, sweeps)
-    q = V.index_select(1, torch.argmax(evals).reshape(1))[:, 0]
-    q = q / torch.clamp(torch.linalg.norm(q), min=1e-30)
-    qq = (q[:, None] * q[None, :]).reshape(16)
-    return (qq @ _linear_map(_HORN_R, 16, 9, dev, dt)).reshape(3, 3)
+    top = torch.argmax(evals, dim=-1)
+    q = torch.gather(V, -1, top[..., None, None].expand(*batch, 4, 1))[..., 0]
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True),
+                        min=1e-30)
+    qq = (q[..., :, None] * q[..., None, :]).reshape(*batch, 16, 1)
+    Rmap = _linear_map(_HORN_R, 16, 9, dev, dt)
+    return torch.sum(qq * Rmap, dim=-2).reshape(*batch, 3, 3)

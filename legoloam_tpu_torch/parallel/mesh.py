@@ -15,6 +15,9 @@ reads a value that is bitwise equal on every rank — a replicated input, a
 value computed from replicated inputs by the same operations, or the result
 of an all-reduce.  ``Mesh.read`` is that read; with ``strict`` it also
 all-gathers the value and raises where the ranks disagree (the tests run so).
+A read never happens inside a segment of a CUDA graph
+(``models/step_graph.py``): on NCCL the collectives are captured with the
+segments, and the reads sit at their boundaries.
 """
 
 from __future__ import annotations
@@ -53,9 +56,19 @@ class Mesh:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
 
+    @property
+    def capturable(self) -> bool:
+        """Whether the collectives can be captured in a CUDA graph: on
+        NCCL, never on gloo."""
+        return dist.get_backend(self.group) == "nccl"
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` stacked in rank order: ``(size, *x.shape)``."""
         x = x.contiguous()
+        if self.capturable:
+            out = x.new_empty((self.size, *x.shape))
+            dist.all_gather_into_tensor(out, x, group=self.group)
+            return out
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x, group=self.group)
         return torch.stack(parts)
@@ -123,8 +136,10 @@ def pad_rows(a: torch.Tensor, rows: int, fill=0) -> torch.Tensor:
     extra = rows - a.shape[0]
     if extra <= 0:
         return a
-    f = torch.as_tensor(fill, dtype=a.dtype, device=a.device)
-    return torch.cat([a, f.expand(extra, *a.shape[1:])])
+    pad = (fill.to(a.device, a.dtype).expand(extra, *a.shape[1:])
+           if isinstance(fill, torch.Tensor)
+           else a.new_full((extra, *a.shape[1:]), fill))
+    return torch.cat([a, pad])
 
 
 def rank_device(rank: int, device, backend: str) -> torch.device:

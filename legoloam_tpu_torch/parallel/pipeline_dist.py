@@ -26,18 +26,29 @@ the pose graph over the ranks (``posegraph_dist.optimize_sharded``).
 
 As in the JAX package, the mesh path never decimates the keyframe store
 and counts no submap voxel overflow.
+
+As on the single device, the decisions stay on the device: a keyframe's
+clouds are written at a device-side slot of their owner's shard, masked by
+the gate and by ownership; a loop attempt's candidate, count and
+acceptance are adopted under ``where``, its ICP and the pose graph's CG run
+in chunks with one ``Mesh.read`` a chunk, and the acceptance is read once.
+Every read is a ``Mesh.read`` of a replicated value at a segment boundary
+(``ops/segments.py``), so on NCCL ``MeshBackend`` is capturable and the
+drivers replay the step as CUDA graphs (``models/step_graph.py``); on gloo
+it runs eagerly.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..config import LoopClosureConfig, MappingConfig, PipelineConfig, \
     PoseGraphConfig
-from ..device import resolve_device
+from ..device import at, resolve_device
 from ..models import loopclosure as loop_mod
 from ..models import mapping as mapping_mod
 from ..models import odometry as odom
@@ -51,6 +62,7 @@ from ..ops import icp as icp_ops
 from ..ops import se3
 from ..ops.features import FeatureCloud
 from ..ops.se3 import Pose
+from ..ops.segments import Eager
 from ..ops.voxel import voxel_downsample, voxel_representative
 from . import mapping_dist, posegraph_dist
 from .mapping_dist import _first_k, cyclic_rows, local_slots
@@ -240,16 +252,17 @@ def extract_submap_dist(kf: DistKeyframes, center, cfg: MappingConfig,
             gather(kf.surf, kf.surf_valid, s_cap, cfg.surf_leaf))
 
 
-def _append_clouds_dist(kf: DistKeyframes, k: int, is_new: bool, c_pts,
-                        c_ok, s_pts, s_ok, mesh: Mesh) -> DistKeyframes:
-    """Write keyframe ``k``'s clouds into its owner's local slot, in
-    place."""
-    if is_new and k % mesh.size == mesh.rank:
-        slot = k // mesh.size
-        kf.corner[slot] = c_pts
-        kf.corner_valid[slot] = c_ok
-        kf.surf[slot] = s_pts
-        kf.surf_valid[slot] = s_ok
+def _append_clouds_dist(kf: DistKeyframes, k, write, c_pts, c_ok, s_pts,
+                        s_ok, mesh: Mesh) -> DistKeyframes:
+    """Write keyframe ``k``'s clouds (``k`` a () int64 device index) into
+    its owner's local slot, in place, where ``write`` is set: every rank
+    writes its slot ``k // n`` back unchanged unless it owns ``k``."""
+    own = write & ((k % mesh.size) == mesh.rank)
+    slot = torch.clamp(k // mesh.size, max=kf.corner.shape[0] - 1)
+    mapping_mod.put_row(kf.corner, slot, own, c_pts)
+    mapping_mod.put_row(kf.corner_valid, slot, own, c_ok)
+    mapping_mod.put_row(kf.surf, slot, own, s_pts)
+    mapping_mod.put_row(kf.surf_valid, slot, own, s_ok)
     return kf
 
 
@@ -279,7 +292,8 @@ def mesh_map_hooks(mesh: Mesh) -> mapping_mod.MapHooks:
     """``mapping.mapping_step``'s hooks over the ranks: the submap rebuilt
     every step by ``extract_submap_dist`` (no cache, no branch to decide,
     no voxel overflow count), the LM over the ranks, decisions read
-    through ``Mesh.read``, a keyframe's clouds written by their owner."""
+    through ``Mesh.read``, a keyframe's clouds written by their owner at a
+    device-side slot."""
 
     def decide(state: DistMapState, center, cfg: MappingConfig):
         return None
@@ -293,9 +307,7 @@ def mesh_map_hooks(mesh: Mesh) -> mapping_mod.MapHooks:
         return mapping_dist.scan_to_map_sharded(*args, mesh)
 
     def write_clouds(kf, k, write, c_pts, c_ok, s_pts, s_ok):
-        _append_clouds_dist(kf, mesh.read(k, "keyframe slot"),
-                            mesh.read(write, "keyframe gate"), c_pts, c_ok,
-                            s_pts, s_ok, mesh)
+        _append_clouds_dist(kf, k, write, c_pts, c_ok, s_pts, s_ok, mesh)
 
     return mapping_mod.MapHooks(decide=decide, submap=submap,
                                 scan_to_map=scan_to_map, read=mesh.read,
@@ -327,42 +339,30 @@ def _detect_dist(kf: DistKeyframes, cfg: LoopClosureConfig) -> torch.Tensor:
     return loop_mod.detect(kf, cfg)
 
 
-def close_and_correct_dist(kf: DistKeyframes, loops: LoopFactors,
-                           cfg: LoopClosureConfig, pg_cfg: PoseGraphConfig,
-                           mesh: Mesh):
-    """``loopclosure.close_and_correct`` over the ranks: detection on the
-    replicated poses, the current keyframe and the ±``history_num`` window
-    gathered by a masked all-reduce, the ICP on every rank (the same clouds,
-    so the same result), and on acceptance the pose graph re-solved over the
-    ranks (``posegraph_dist.optimize_sharded``).  Only the replicated poses
-    move: the sharded clouds are in the scan frame.  Returns (store,
-    factors, corrected latest pose, diag); a corrected store is a new
-    store."""
+def _prepare_dist(kf: DistKeyframes, cfg: LoopClosureConfig, mesh: Mesh
+                  ) -> loop_mod._Attempt:
+    """``loopclosure._prepare`` over the ranks: the candidate, and the
+    latest keyframe and the candidate's ±``history_num`` window gathered
+    by one masked all-reduce, all at device-side indices; without a
+    candidate both clouds are masked and the ICP is frozen."""
     dev = kf.t.device
-    count = mesh.read(kf.count, "keyframe count")
-    cur = max(count - 1, 0)
+    count = kf.count.long()
+    cur = torch.clamp(count - 1, min=0)
     cand = _detect_dist(kf, cfg)
-    c = mesh.read(cand, "loop candidate")
-    if c < 0 or cur < 1:
-        diag = loop_mod.LoopDiag(candidate=cand,
-                                 fitness=torch.zeros((), device=dev),
-                                 closed=torch.tensor(False, device=dev))
-        return kf, loops, Pose(kf.R[cur], kf.t[cur]), diag
-
+    has_cand = (cand >= 0) & (count >= 2)
     offs = torch.arange(-cfg.history_num, cfg.history_num + 1, device=dev)
-    raw = c + offs
-    hist = torch.clamp(raw, 0, cur)
-    idxs = torch.cat([torch.tensor([cur], device=dev), hist])
-    c_g, cv_g, s_g, sv_g = gather_keyframe_clouds(kf, idxs, mesh)
-
-    pose0 = Pose(kf.R[cur], kf.t[cur])
+    raw = torch.clamp(cand, min=0).long() + offs
+    hist = torch.minimum(torch.clamp(raw, min=0), cur)
+    c_g, cv_g, s_g, sv_g = gather_keyframe_clouds(
+        kf, torch.cat([cur.reshape(1), hist]), mesh)
+    pose0 = Pose(at(kf.R, cur), at(kf.t, cur))
     cur_pts = torch.cat([se3.transform_points(pose0, c_g[0]),
                          se3.transform_points(pose0, s_g[0])], dim=0)
     cur_val = torch.cat([cv_g[0], sv_g[0]], dim=0)
     # The history window without the drifted current pass
     # (loopclosure.window_cloud).
     in_range = (raw >= 0) & (raw < count) \
-        & (kf.time[cur] - kf.time[hist] > cfg.min_time_gap)
+        & (at(kf.time, cur) - kf.time[hist] > cfg.min_time_gap)
     poses = Pose(kf.R[hist], kf.t[hist])
     pts = torch.cat([se3.transform_points(poses, c_g[1:]),
                      se3.transform_points(poses, s_g[1:])], dim=1)
@@ -370,25 +370,55 @@ def close_and_correct_dist(kf: DistKeyframes, loops: LoopFactors,
                      sv_g[1:] & in_range[:, None]], dim=1)
     hist_pts, hist_val = voxel_representative(
         pts.reshape(-1, 3), val.reshape(-1), cfg.submap_leaf, cfg.hist_cap)
+    return loop_mod._Attempt(
+        cur=cur, cand=cand, has_cand=has_cand, no_cand=~has_cand,
+        cur_pts=cur_pts, cur_val=cur_val & has_cand, hist_pts=hist_pts,
+        hist_val=hist_val & has_cand, init=Pose.identity(device=dev))
 
-    res = icp_ops.icp(cur_pts, cur_val, hist_pts, hist_val,
-                      Pose.identity(device=dev),
+
+def close_and_correct_dist(kf: DistKeyframes, loops: LoopFactors,
+                           cfg: LoopClosureConfig, pg_cfg: PoseGraphConfig,
+                           mesh: Mesh, rt=None):
+    """``loopclosure.close_and_correct`` over the ranks: detection on the
+    replicated poses, the current keyframe and the ±``history_num`` window
+    gathered by a masked all-reduce, the ICP on every rank (the same clouds,
+    so the same result), and on acceptance the pose graph re-solved over the
+    ranks (``posegraph_dist.optimize_sharded``).  Only the replicated poses
+    move: the sharded clouds are in the scan frame.  The decisions and
+    reads are the single device's: the ICP's stop flag a chunk, the
+    acceptance once, the CG's stop flag a chunk.  Returns (store, factors,
+    corrected latest pose, diag); run eagerly, a corrected store is a new
+    store, and a graph runner (``rt``) writes the factors and the
+    corrected poses into ``loops`` and ``kf``."""
+    rt = rt or Eager(mesh.read)
+    a = rt.seg(("loopd", "prepare", cfg),
+               partial(_prepare_dist, cfg=cfg, mesh=mesh), kf)
+    res = icp_ops.icp(a.cur_pts, a.cur_val, a.hist_pts, a.hist_val, a.init,
                       max_corr_dist=cfg.icp_max_corr_dist,
-                      max_iters=cfg.icp_max_iters, eps=cfg.icp_eps)
-    accept = res.has_converged & (res.fitness < cfg.fitness_thresh)
-    diag = loop_mod.LoopDiag(candidate=cand, fitness=res.fitness,
-                             closed=accept)
-    if not mesh.read(accept, "loop acceptance"):
-        return kf, loops, Pose(kf.R[cur], kf.t[cur]), diag
+                      max_iters=cfg.icp_max_iters, eps=cfg.icp_eps,
+                      frozen=a.no_cand, rt=rt, key="loop icp")
+    accept, loops = rt.seg(("loop", "accept", cfg),
+                           partial(loop_mod._accept, cfg=cfg), kf, loops, a,
+                           res, into=(None, loops))
+    R, t = kf.R, kf.t
+    if rt.read(accept, "loop accepted"):
+        R, t = posegraph_dist.optimize_sharded(
+            R, t, kf.count, kf.chain_R, kf.chain_t, loops,
+            Pose(kf.R[0], kf.t[0]), pg_cfg, mesh, rt=rt)
+        kf = kf._replace(R=R, t=t)
+    corrected, diag = rt.seg(("loop", "outcome"), loop_mod._outcome, R, t, a,
+                             accept, res.fitness)
+    return kf, loops, corrected, diag
 
-    T_cor = se3.compose(res.pose, Pose(kf.R[cur], kf.t[cur]))
-    Z = se3.relative(T_cor, Pose(kf.R[c], kf.t[c]))
-    loops = posegraph.add_loop_factor(loops, cur, c, Z, res.fitness)
-    R_out, t_out = posegraph_dist.optimize_sharded(
-        kf.R, kf.t, kf.count, kf.chain_R, kf.chain_t, loops,
-        Pose(kf.R[0], kf.t[0]), pg_cfg, mesh)
-    kf = kf._replace(R=R_out, t=t_out)
-    return kf, loops, Pose(kf.R[cur], kf.t[cur]), diag
+
+def _adopt_dist(mp: DistMapState, kf: DistKeyframes, corrected: Pose,
+                closed) -> DistMapState:
+    """A closed loop's corrected poses and mapping correction (the
+    single device's ``pipeline._adopt`` without a submap cache)."""
+    return mp._replace(
+        kf=kf._replace(R=torch.where(closed, kf.R, mp.kf.R),
+                       t=torch.where(closed, kf.t, mp.kf.t)),
+        t_aft=se3.where_pose(closed, corrected, mp.t_aft))
 
 
 # ---------------------------------------------------------------------------
@@ -401,12 +431,15 @@ class MeshBackend(pipeline_mod.Backend):
     closure through ``close_and_correct_dist``; no decimation (as in the
     JAX package)."""
 
-    # NCCL and gloo collectives run eagerly (the step is not captured).
-    capturable = False
-
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self.map_hooks = mesh_map_hooks(mesh)
+
+    @property
+    def capturable(self) -> bool:
+        """NCCL's collectives are captured with the step's graphs; gloo's
+        run eagerly."""
+        return self.mesh.capturable
 
     def init_state(self, cfg: PipelineConfig, device=None):
         return init_dist_state(cfg, self.mesh)
@@ -420,10 +453,11 @@ class MeshBackend(pipeline_mod.Backend):
         return to_slam_state(state, cfg, self.mesh)
 
     def close_loop(self, map_state, loops, cfg: PipelineConfig, rt=None):
+        rt = rt or Eager(self.mesh.read)
         kf, loops, corrected, ldiag = close_and_correct_dist(
-            map_state.kf, loops, cfg.loop, cfg.posegraph, self.mesh)
-        if self.mesh.read(ldiag.closed, "loop closed"):
-            map_state = map_state._replace(kf=kf, t_aft=corrected)
+            map_state.kf, loops, cfg.loop, cfg.posegraph, self.mesh, rt=rt)
+        map_state = rt.seg(("loopd", "adopt"), _adopt_dist, map_state, kf,
+                           corrected, ldiag.closed, into=map_state)
         return map_state, loops
 
     def maybe_decimate(self, state, cfg: PipelineConfig, margin: int = 16):

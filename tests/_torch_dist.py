@@ -14,6 +14,8 @@ import pickle
 
 import torch
 
+from legoloam_tpu_torch.models import step_graph
+from legoloam_tpu_torch.ops.segments import leaves
 from legoloam_tpu_torch.parallel import (frontend_dp, mapping_dist,
                                          pipeline_dist, posegraph_dist)
 from legoloam_tpu_torch.parallel.mesh import launch
@@ -157,6 +159,50 @@ def case_block(mesh, inp):
         block.append(outs.fused_pose.t)
     return (torch.stack(stream), torch.cat(block), st.mapping.kf.count,
             st2.mapping.kf.count)
+
+
+def _mesh_steps(mesh, scans, cfg, runner, loop_at=None, bootstrap=True):
+    """The mesh step through ``StepGraph`` on ``runner`` (None: eager)
+    over ``scans`` at the drivers' cadence, ``loop_at`` the scan with a
+    loop attempt: (fused positions, the names of each scan's host reads,
+    the StepGraph)."""
+    sg = step_graph.StepGraph(pipeline_dist.init_dist_state(cfg, mesh), cfg,
+                              pipeline_dist.MeshBackend(mesh), runner=runner)
+    names = []
+    read = sg.rt.read_fn
+    sg.rt.read_fn = lambda x, what: (names.append(what), read(x, what))[1]
+    fused, reads = [], []
+    for k, s in enumerate(scans):
+        n0 = len(names)
+        out = sg.step(*s, k * 0.1, run_mapping=(k % cfg.mapping_every == 0),
+                      run_loop=(k == loop_at), bootstrap=bootstrap and k == 1)
+        _replicated(mesh, out.fused_pose, f"fused pose {k}")
+        fused.append(out.fused_pose.t)
+        reads.append(names[n0:])
+    return torch.stack(fused), reads, sg
+
+
+def case_mesh_graph(mesh, inp):
+    """The mesh step eagerly and through ``StaticRunner`` (the CUDA graph
+    runner's dataflow) with a loop attempt at ``loop_at``, and the SLAM
+    stream of ``case_slam`` through ``StaticRunner``: fused positions, each
+    scan's reads by name, whether the two final states are bitwise equal
+    on every rank, the loop count, whether the eager step was captured,
+    and the stream's fused positions, keyframe count and poses."""
+    scans, cfg, loop_at, slam_cfg = inp
+    e_fused, e_reads, esg = _mesh_steps(mesh, scans, cfg, None, loop_at)
+    s_fused, s_reads, ssg = _mesh_steps(mesh, scans, cfg,
+                                        step_graph.StaticRunner(), loop_at)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(ssg.state),
+                                                  leaves(esg.state)))
+    same_all = mesh.all_reduce(torch.tensor([float(same)]))
+    fused, _, sg = _mesh_steps(mesh, scans, slam_cfg,
+                               step_graph.StaticRunner(), bootstrap=False)
+    kf = sg.state.mapping.kf
+    return (e_fused, e_reads, s_fused, s_reads,
+            float(same_all) == mesh.size, ssg.state.loops.count,
+            esg.captured, pipeline_dist.MeshBackend(mesh).capturable,
+            fused, kf.count, kf.t)
 
 
 def world_report(mesh, path):

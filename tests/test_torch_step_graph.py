@@ -181,3 +181,15 @@ def test_step_body_reads_only_its_decisions(eager, mode, variant):
     assert torch.equal(sout.fused_pose.t, eout.fused_pose.t)
     assert all(torch.equal(a, b) for a, b in zip(leaves(ssg.state),
                                                   leaves(esg.state)))
+
+
+def test_static_runner_refuses_arguments_outside_static_buffers():
+    """A segment may take an adopted buffer, a segment's result or a view
+    of either; a tensor computed eagerly between segments (which, replayed,
+    would read a result the deferred chain has not written yet) raises."""
+    rt = step_graph.StaticRunner()
+    x = rt.adopt(torch.arange(4.0))
+    y = rt.seg(("t", "double"), lambda a: a * 2, x)
+    rt.seg(("t", "head"), lambda a: a + 1, y[:2])
+    with pytest.raises(ValueError, match="outside the static buffers"):
+        rt.seg(("t", "stray"), lambda a: a - 1, y + 1)
