@@ -43,6 +43,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
      StepGraph.block (slam_scan_block's body), a capturing pass, then a
      replayed pass: bitwise to 4b's per-scan graphs, at most 1 host read
      and 2 graph replays a block, scans/s;
+  4d. [odometry graph] the same scans through odometry_scan_block (blocks
+     of 12) and odometry_scan_step, each from a fresh state: the first
+     call starts the drivers' kept OdometryGraph and captures, every later
+     call replays; against the eager body (graph=False): poses bitwise, 0
+     host reads and one replay in each later call, scans/s of each;
+  4e. [bench] ``python -m legoloam_tpu_torch.bench`` with no flags (grow
+     1024, ring world, DEFAULT) in a child process alone on the card: its
+     eight windows (with the graph captures inside each), the ledger and
+     its JSON line beside the JAX package's v5e numbers (BENCH_r05.json);
+     gates: bench.py's metric name, >= 10 scans/s, overflow 0, all
+     finite, fused abs error max < 0.5 m; [bench modes] each micro-mode
+     (--cycle --scans 60, --slam-block, --loop, --odometry, --odometry
+     --block 1, --sensor vls128 --cycle) in a child process: exit 0,
+     bench.py's metric name, a finite value, no graph capture in the timed
+     run but in --loop's; each run's kernel launches;
   5. run the first 6 scans on the card and on the CPU (plain versions):
      fused trajectories agree to 1e-3 m;
   6. time each kernel (wrapper call and bare launch), its plain version and,
@@ -70,8 +85,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      measurement and the pose-graph solve alone on the same factors);
   8. decimate_keyframes(keep_recent=32) on the loop run's final store on
      the card and on the CPU (counts, kept times, validity and factors
-     equal, poses within 1e-5), and a 96-scan run_slam_sequence whose
-     36-keyframe store maybe_decimate decimates mid-run;
+     equal, poses within 1e-5), a 96-scan run_slam_sequence whose
+     36-keyframe store maybe_decimate decimates mid-run, and the bench's
+     grow loop over 96 scans decimating an 80-keyframe store twice, as
+     graphs and as the eager body: bitwise;
   9. the IMU path (synthetic.make_imu along the main-path world) over the
      96 scans: fused ATE < 0.2 m, card vs CPU over 6 scans < 1e-3 m, the
      median ms of each stage of process_scan_with_imu;
@@ -146,21 +163,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
  26. [long circuit] evals.long --world circuit --scans 1150 --noise 0.02:
      fused end drift < 1% of the path, odometry < 8%, all finite; the
      residual along-track and pitch bias of the per-scan increments
-     (printed only).  The five evaluations (16, 17, 25, 26) and the
-     card-vs-CPU runs of 22 and 23 are child processes started together
-     after 22; 23 and 24 run on the card in this process meanwhile.  The
-     JAX package's v5e TPU ledgers are printed beside 25 and 26, labelled
-     as such.
+     (printed only).
+ 27. [endurance] ``python -m legoloam_tpu_torch.bench --grow 20480 --world
+     circuit --half 100`` (16.4 km, the keyframe store decimated as it
+     fills): at least one decimation, overflow 0, all finite, fused end
+     drift < 1% of the path; every 16th window and those around each
+     decimation, the ledger and the JSON line beside the JAX package's v5e
+     run (BENCH_GROW.md round 5); its whole stderr goes to endurance.err
+     beside the script's log.  The five evaluations (16, 17, 25, 26),
+     the endurance run and the card-vs-CPU runs of 22 and 23 are child
+     processes started together after 22; 23 and 24 run on the card in
+     this process meanwhile.  The JAX package's v5e TPU ledgers are
+     printed beside 25, 26 and 27, labelled as such.
   Every phase but [mesh x2] and the [reloc] boot step runs the step
   through the drivers' step graph.
-  Each path's kernel launches are counted around its run (the CLI runs and
-  the evaluations report theirs from their processes); the kernels line
-  sums them.
+  Each path's kernel launches are counted around its run (the CLI runs,
+  the evaluations and the bench runs report theirs from their processes;
+  the odometry paths launch no K3); the kernels line sums them.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
 """
 
+import contextlib
 import dataclasses
 import datetime
 import glob
@@ -173,13 +198,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from io import StringIO
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from legoloam_tpu_torch import DEFAULT
+from legoloam_tpu_torch import DEFAULT, bench
 from legoloam_tpu_torch.config import REFERENCE, for_sensor
 from legoloam_tpu_torch.models import (fusion, loopclosure, mapping,
                                        odometry, pipeline, posegraph,
@@ -214,6 +240,12 @@ ATTEMPT_POS_TOL = 1e-3
 # scan 63 of the main-path world and is decimated mid-run.
 DECIMATE_CAP = 36
 DECIMATE_RECENT = 16
+# The bench's grow loop over the main path's 96 scans, its saturation guard
+# (margin 64) every 32 scans on an 80-keyframe store: decimations after
+# scans 64 and 96, graphs held against the eager body.
+DECIMATE_WINDOW = 32
+BENCH_DECIMATE = ["--grow", "96", "--set-map", "max_keyframes=80",
+                  "--set-map", f"decimate_keep_recent={DECIMATE_RECENT}"]
 # Relocalization: the prior is moved by this much from the mapped pose.
 RELOC_SHIFT_M = 20.0
 RELOC_YAW_DEG = 90.0
@@ -302,6 +334,35 @@ CHILD_TIMEOUT_S = 600
 # loop lap's first accepted attempt.
 GRAPH_POS_TOL = 1e-5
 PCG_CHUNKS = (1, 2, 4, 8)
+# [odometry graph]: the main path's scans through the odometry program
+# (step_graph.OdometryGraph) in blocks of ODO_BLOCK and scan by scan.
+ODO_BLOCK = 12
+# [bench], [bench modes], [endurance]: ``python -m legoloam_tpu_torch.bench``
+# in child processes: no flags (grow 1024, ring world), each micro-mode,
+# and the 20,480-scan circuit run (beside the evaluations).  The JAX
+# package's numbers on a v5e TPU are printed beside the port's:
+# BENCH_r05.json (the last recorded grow-1024 run, with its ledger line;
+# BENCH_r04.json recorded 155.09) and BENCH_GROW.md's round 5.
+BENCH_MODES = {
+    "cycle": ["--cycle", "--scans", "60"],
+    "slam-block": ["--slam-block"],
+    "loop": ["--loop"],
+    "odometry": ["--odometry"],
+    "odometry --block 1": ["--odometry", "--block", "1"],
+    "vls128 cycle": ["--sensor", "vls128", "--cycle"]}
+ENDURANCE = ["--grow", "20480", "--world", "circuit", "--half", "100"]
+BENCH_TIMEOUT_S = 300
+ENDURANCE_TIMEOUT_S = 900
+JAX_GROW_WINDOWS = (148.4, 169.6, 167.1, 163.7, 168.3, 166.7, 168.1, 164.8)
+JAX_GROW = ("154.65 scans/s; trajectory 276 m, abs err mean 0.072 max 0.155 "
+            "end 0.049 m (0.018%), kf=342 overflow=0")
+JAX_ENDURANCE = ("132.35 scans/s; decimated to 2283 and 2272 kf (BENCH_GROW."
+                 "md labels them after scans 10368 and 15488; its keyframe "
+                 "counts place them after 12160 and 17408); 16.4 km, abs "
+                 "err mean 1.46 m, max 2.43 m, end 1.85 m (0.011%), "
+                 "overflow 0")
+# Paths that run odometry alone: no K3 (its class-NN is ops/voxel.py's).
+NO_KNN = ("odometry graph", "bench odometry", "bench odometry --block 1")
 
 
 def fail(msg: str):
@@ -918,6 +979,31 @@ def decimate_card_vs_cpu(kf, loops, dev, keep_recent=32):
     pairs += [(gl.R, cl.R), (gl.t, cl.t)]
     pose_gap = max(float((a - b).abs().max()) for a, b in pairs)
     return int(gk.count), int(gl.count), int(gl.dropped), exact, pose_gap
+
+
+def bench_decimate_check():
+    """[decimate]: the bench's grow loop across decimations
+    (``StepGraph.load`` of the decimated store between replays), the
+    graphs against the eager body: equal decimations and keyframes,
+    fused positions bitwise."""
+    grown = {}
+    for g in (True, False):
+        with contextlib.redirect_stdout(StringIO()), \
+                contextlib.redirect_stderr(StringIO()):
+            grown[g] = bench.main(BENCH_DECIMATE, window=DECIMATE_WINDOW,
+                                  graph=g)
+    gap = float(np.abs(grown[True]["fused"] - grown[False]["fused"]).max())
+    log(f"[decimate] bench grow loop ({' '.join(BENCH_DECIMATE)}, "
+        f"{DECIMATE_WINDOW}-scan windows): decimations "
+        f"{grown[True]['decimations']} / {grown[False]['decimations']} "
+        f"(graphs / eager), keyframes {grown[True]['kf']} / "
+        f"{grown[False]['kf']}, graph captures per window "
+        f"{[w['captures'] for w in grown[True]['windows']]}; largest fused "
+        f"position difference {gap:.3g} m")
+    if not (grown[True]["decimations"] == grown[False]["decimations"] >= 1
+            and gap == 0.0 and grown[True]["kf"] == grown[False]["kf"]):
+        fail("decimate: the bench's graphs and eager body disagree across "
+             "a decimation")
 
 
 def imu_integral(poses):
@@ -1673,8 +1759,8 @@ def circuit_bias(path):
 def new_phases(dev, card, paths, err):
     """[sensors]; then, while [reference] and [pathologies] run on the card
     here, the child processes: the five evaluations ([kidnap], [recovery],
-    [long ring] twice, [long circuit]) and the card-vs-CPU runs of
-    [sensors] and [reference]."""
+    [long ring] twice, [long circuit]), the bench's [endurance] run and the
+    card-vs-CPU runs of [sensors] and [reference]."""
     with tempfile.TemporaryDirectory() as work:
         sensors, parity = {}, {}
         for name in SENSOR_NAMES:
@@ -1701,11 +1787,13 @@ def new_phases(dev, card, paths, err):
                 f"eval_child({module!r}, {argv!r}, "
                 f"{work_file(name + '.json')!r})", work_file(name + ".log")),
                 work_file(name + ".log"))
+        children["endurance"] = (start_bench(
+            ENDURANCE, work_file("endurance")), work_file("endurance.err"))
         children["card vs CPU"] = (start_child(
             f"cpu_parity_child({work_file('parity_in.pt')!r}, "
             f"{work_file('parity_out.pt')!r}, {PARITY_THREADS})",
             work_file("parity.log")), work_file("parity.log"))
-        t_children = time.perf_counter()
+        t_children = t_start = time.perf_counter()
         try:
             cfg = REFERENCE
             ((fused, state), seconds), paths["reference"] = counted(
@@ -1724,10 +1812,20 @@ def new_phases(dev, card, paths, err):
                 fail(f"reference: ATE {ate:.4f} m, {n_kf} keyframes")
             sensors["reference"] = fused
             pathology_phase(dev, card, paths)
-            wait_children(children, CHILD_TIMEOUT_S)
+            wait_children({k: v for k, v in children.items()
+                           if k != "endurance"}, CHILD_TIMEOUT_S)
+            t_children = time.perf_counter() - t_children
+            wait_children({"endurance": children["endurance"]},
+                          ENDURANCE_TIMEOUT_S - t_children)
         finally:
             stop_children(children)
-        t_children = time.perf_counter() - t_children
+        t_endurance = time.perf_counter() - t_start
+        endurance = bench_result(work_file("endurance"))
+        endurance["seconds"] = t_endurance
+        os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+        with open(os.path.join(os.path.dirname(LOG_PATH),
+                               "endurance.err"), "w") as f:
+            f.write("\n".join(endurance["err"]) + "\n")
 
         cpu = torch.load(work_file("parity_out.pt"), weights_only=False)
         for name, (f_cpu, cpu_s) in cpu.items():
@@ -1783,7 +1881,9 @@ def new_phases(dev, card, paths, err):
         f"(the JAX package on a v5e TPU: -0.9% along-track, -0.034 deg a "
         f"scan pitch, odometry)")
     log(f"[children] the {len(EVAL_RUNS)} evaluations and the card-vs-CPU "
-        f"runs took {t_children:.1f} s from their start [{card}]")
+        f"runs took {t_children:.1f} s from their start, the endurance run "
+        f"{endurance['seconds']:.1f} s [{card}]")
+    endurance_report(endurance, card, paths)
 
 
 # ---------------------------------------------------------------------------
@@ -2485,6 +2585,291 @@ def attempt_graph_phase(first, lcfg, dev, card):
                  f"eager body ({closed} / {bool(d_e.closed)}, {gap:.3g} m)")
 
 
+# ---------------------------------------------------------------------------
+# The odometry program and the bench
+# ---------------------------------------------------------------------------
+
+def odometry_graph_phase(scans, cfg, dev, card):
+    """[odometry graph]: the main path's scans through
+    ``pipeline.odometry_scan_block`` (blocks of ODO_BLOCK) and
+    ``odometry_scan_step``, each from a fresh state and passing back the
+    state it returned: the first call starts a kept program
+    (``pipeline.kept_program``) and captures, every later one replays;
+    against the eager body (``graph=False``): poses bitwise, 0 host reads
+    in the replayed calls, one replay a block and a scan; scans/s of each.
+    Returns the block pass's launches."""
+    B = ODO_BLOCK
+    n = len(scans) // B * B
+    blocks = [tuple(torch.stack([scans[b + i][j] for i in range(B)])
+                    for j in range(3)) for b in range(0, n, B)]
+
+    def fresh():
+        return odometry.init_state(cfg.odom, cfg.feat, dev)
+
+    def drive(graph, calls, fn):
+        """``fn`` over ``calls`` from a fresh state: (poses, the kept
+        program, seconds of the first call, seconds of the others, host
+        reads in the others; counted on the graphs only, since the
+        counting mode slows each eager operation)."""
+        st, poses = fresh(), []
+        mode = ReadCount() if graph else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, c in enumerate(calls):
+            if i == 1:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                mode.__enter__()
+            st, out = fn(st, *c, cfg, graph=graph)
+            poses.append(out.pose.t.reshape(-1, 3))
+        torch.cuda.synchronize()
+        mode.__exit__(None, None, None)
+        t2 = time.perf_counter()
+        return (torch.cat(poses), pipeline.kept_program(st), t1 - t0,
+                t2 - t1, getattr(mode, "reads", None))
+
+    def run(calls, fn):
+        eager, _, e0, e1, _ = drive(False, calls, fn)
+        (poses, prog, t_cap, t_rep, reads), launches = counted(
+            lambda: drive(True, calls, fn))
+        return {"poses": poses, "per": len(calls), "capture_s": t_cap,
+                "s": t_rep, "launches": launches, "reads": reads,
+                "replays": prog.rt.replays if prog else -1, "eager": eager,
+                "eager_s": e1,
+                "chains": len(prog.rt.chains) if prog else -1}
+
+    blk = run(blocks, pipeline.odometry_scan_block)
+    stream = run(scans[:n], pipeline.odometry_scan_step)
+    gap = float((blk["poses"] - stream["poses"]).abs().max())
+    for name, r in (("blocks of %d" % B, blk), ("scan by scan", stream)):
+        m = n - n // r["per"]         # scans in the replayed calls
+        log(f"[odometry graph] {n} main-path scans, {name}: first call "
+            f"(captures) {n // r['per'] / r['capture_s']:.2f} scans/s, "
+            f"the {r['per'] - 1} replayed calls {m / r['s']:.2f} scans/s, "
+            f"eager body over the same calls {m / r['eager_s']:.2f} scans/s "
+            f"({r['eager_s'] / r['s']:.2f}x); graph replays {r['replays']} "
+            f"for {r['per'] - 1} calls; host reads {r['reads']}; "
+            f"chains {r['chains']}; graph vs eager bitwise "
+            f"{torch.equal(r['poses'], r['eager'])}; launches "
+            f"{r['launches']} [{card}]")
+        if not torch.equal(r["poses"], r["eager"]):
+            fail(f"odometry graph, {name}: graphs differ from the eager "
+                 f"body by {float((r['poses'] - r['eager']).abs().max())} m")
+        if r["reads"] != 0 or r["replays"] != r["per"] - 1 \
+                or r["chains"] != 1:
+            fail(f"odometry graph, {name}: {r['reads']} host reads, "
+                 f"{r['replays']} replays for {r['per'] - 1} calls, "
+                 f"{r['chains']} chains")
+        if not torch.isfinite(r["poses"]).all():
+            fail(f"odometry graph, {name}: non-finite pose")
+        if r["launches"]["knn"] != 0 or min(
+                v for k, v in r["launches"].items() if k != "knn") <= 0:
+            fail(f"odometry graph, {name}: launches {r['launches']}")
+    log(f"[odometry graph] blocks vs scan by scan: largest pose difference "
+        f"{gap:.3g} m")
+    return blk["launches"]
+
+
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+WINDOW_RE = re.compile(r"\[grow\] scans (\d+)-(\d+): +(\S+) scans/s +"
+                       r"kf= *(\d+) +peak_hbm=(\S+) GiB.*captures=(\d+)")
+LEDGER_RE = re.compile(r"\[grow\] trajectory: (\S+) m, abs err mean (\S+) "
+                       r"max (\S+) end (\S+) m \((\S+)% of distance\), "
+                       r"kf=(\d+) overflow=(\d+)")
+LAUNCHES_AT = "[bench] kernel launches in the timed run: "
+
+
+def start_bench(flags, base):
+    """``python -m legoloam_tpu_torch.bench <flags>`` as a child process
+    from the repo root; its stdout to ``base``.out, stderr to .err."""
+    out, err = open(base + ".out", "w"), open(base + ".err", "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "legoloam_tpu_torch.bench", *flags],
+            cwd=REPO_DIR, stdout=out, stderr=err)
+    finally:
+        out.close()
+        err.close()
+
+
+def bench_result(base):
+    """A finished bench child's JSON line and stderr, parsed: windows
+    (end, scans/s, keyframes, peak GiB, captures), decimations (the store
+    after each), the ledger, the kernel launches, overflow warnings."""
+    with open(base + ".out") as f:
+        out = f.read().strip().splitlines()
+    with open(base + ".err") as f:
+        err = f.read().splitlines()
+    r = {"line": json.loads(out[-1]), "err": err, "windows": [],
+         "decimations": [], "ledger": None, "launches": None,
+         "warnings": [x for x in err if "WARNING" in x]}
+    for x in err:
+        m = WINDOW_RE.match(x)
+        if m:
+            r["windows"].append((int(m[2]), float(m[3]), int(m[4]),
+                                 float(m[5]), int(m[6])))
+        elif x.startswith("[grow] decimated keyframe store ->"):
+            r["decimations"].append((r["windows"][-1][0],
+                                     int(x.split()[-2])))
+        elif LEDGER_RE.match(x):
+            m = LEDGER_RE.match(x)
+            r["ledger"] = {"dist": float(m[1]), "mean": float(m[2]),
+                           "max": float(m[3]), "end": float(m[4]),
+                           "pct": float(m[5]), "kf": int(m[6]),
+                           "overflow": int(m[7])}
+        elif x.startswith(LAUNCHES_AT):
+            r["launches"] = json.loads(x[len(LAUNCHES_AT):])
+    return r
+
+
+def run_bench(flags, base, timeout_s):
+    """A bench child run to its end: its parsed result and seconds; fails
+    with the end of its stderr unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = start_bench(flags, base)
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        fail(f"bench {' '.join(flags)}: exit {rc}\n"
+             + open(base + ".err").read()[-3000:])
+    r = bench_result(base)
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+def check_bench_line(r, what, metric):
+    """The JSON line has the JAX bench's shape and ``metric``, and a
+    finite value; the kernel launches were reported."""
+    line = r["line"]
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} \
+            or line["metric"] != metric or line["unit"] != "scans/sec" \
+            or not math.isfinite(line["value"]) or line["value"] <= 0:
+        fail(f"{what}: line {line}, expected the metric {metric!r}")
+    if r["launches"] is None:
+        fail(f"{what}: no launch line")
+
+
+def bench_phase(work, card, paths):
+    """[bench]: ``python -m legoloam_tpu_torch.bench`` with no flags (grow
+    1024, ring world, DEFAULT) in a child process alone on the card: its
+    windows, ledger and JSON line beside the JAX package's v5e numbers;
+    gates: the JAX bench's metric, >= 10 scans/s, overflow 0, finite, the
+    fused abs error max < 0.5 m (the loop lap's bound)."""
+    r = run_bench([], os.path.join(work, "bench"), BENCH_TIMEOUT_S)
+    line, led = r["line"], r["ledger"]
+    for i, (end, rate, kf, peak, caps) in enumerate(r["windows"]):
+        jax_rate = JAX_GROW_WINDOWS[i] if i < len(JAX_GROW_WINDOWS) \
+            else float("nan")
+        log(f"[bench] scans {end - 128}-{end}: {rate:.1f} scans/s, kf={kf}, "
+            f"peak allocated {peak:.2f} GiB, graph captures {caps} [{card}]"
+            f" -- the JAX package on a v5e TPU (not this port's): "
+            f"{jax_rate} scans/s")
+    for x in r["err"]:
+        if x.startswith("[mem]") or x.startswith("[grow] trajectory"):
+            log(f"[bench] {x}")
+    log(f"[bench] {json.dumps(line)}; the child took {r['seconds']:.1f} s "
+        f"(start-up, ray casting and warm-up included); launches "
+        f"{r['launches']} [{card}] -- the JAX package on a v5e TPU (not "
+        f"this port's, BENCH_r05.json): {JAX_GROW}")
+    check_bench_line(r, "bench", "slam_grow1024_scans_per_sec (ring world, "
+                     "growing map, gpu)")
+    if led is None or len(r["windows"]) != 8:
+        fail(f"bench: ledger {led}, {len(r['windows'])} windows")
+    vals = [led[k] for k in ("dist", "mean", "max", "end")] + [
+        w[1] for w in r["windows"]]
+    if not all(math.isfinite(v) for v in vals):
+        fail("bench: a non-finite number")
+    if line["value"] < 10 or led["overflow"] != 0 or r["warnings"]:
+        fail(f"bench: {line['value']} scans/s, overflow {led['overflow']}")
+    if not led["max"] < 0.5:
+        fail(f"bench: fused abs error max {led['max']} m >= 0.5 m")
+    if min(r["launches"].values()) <= 0:
+        fail(f"bench: launches {r['launches']}")
+    paths["bench"] = r["launches"]
+
+
+def bench_modes_phase(work, card, paths):
+    """[bench modes]: each micro-mode of the bench (BENCH_MODES) in a child
+    process, one after another: exit 0, the JAX bench's metric name, a
+    finite value, no graph capture in the timed run (but in --loop's,
+    whose ICP may stop after a number of chunks the warm-up did not see);
+    each mode's kernel launches into ``paths``."""
+    for name, flags in BENCH_MODES.items():
+        r = run_bench(flags, os.path.join(work, "mode"), BENCH_TIMEOUT_S)
+        stem = ("slam_loop_scans_per_sec" if "--loop" in flags else
+                "odometry_scans_per_sec" if "--odometry" in flags else
+                "slam_scans_per_sec")
+        check_bench_line(r, f"bench {name}",
+                         f"{stem} (VLP-16 synthetic, gpu)")
+        timed_run = [x for x in r["err"] if x.startswith("[bench] timed")]
+        log(f"[bench modes] {' '.join(flags)}: {json.dumps(r['line'])}; "
+            f"{timed_run[0][8:] if timed_run else ''}; the child took "
+            f"{r['seconds']:.1f} s; launches {r['launches']} [{card}]")
+        caps = re.search(r"graph captures (\d+), replays", timed_run[0]) \
+            if timed_run else None
+        if caps is None or ("--loop" not in flags and int(caps[1]) != 0):
+            fail(f"bench {name}: graph captures in the timed run "
+                 f"({timed_run})")
+        launches = r["launches"]
+        if "--odometry" in flags:
+            ok = launches["knn"] == 0 and min(
+                v for k, v in launches.items() if k != "knn") > 0
+        else:
+            ok = min(launches.values()) > 0
+        if not ok:
+            fail(f"bench {name}: launches {launches}")
+        paths[f"bench {name}"] = launches
+
+
+def endurance_report(r, card, paths):
+    """[endurance]: the 20,480-scan circuit run's windows (every 16th and
+    those around each decimation), decimations, ledger and JSON line,
+    beside the JAX package's v5e numbers; gates: at least one decimation,
+    overflow 0, finite, fused end drift < 1% of the path."""
+    line, led, wins = r["line"], r["ledger"], r["windows"]
+    n = int(ENDURANCE[1])
+    at = {d for d, _ in r["decimations"]}
+    for i, (end, rate, kf, peak, caps) in enumerate(wins):
+        if i % 16 == 0 or end in at or end - 128 in at or i == len(wins) - 1:
+            log(f"[endurance] scans {end - 128}-{end}: {rate:.1f} scans/s, "
+                f"kf={kf}, peak allocated {peak:.2f} GiB, graph captures "
+                f"{caps}")
+    rates = sorted(w[1] for w in wins)
+    log(f"[endurance] {len(wins)} windows: min {rates[0]:.1f}, median "
+        f"{pct(rates, 0.5):.1f}, max {rates[-1]:.1f} scans/s; graph "
+        f"captures inside windows {sum(w[4] for w in wins)}; decimations "
+        f"after scans {[d for d, _ in r['decimations']]} -> "
+        f"{[k for _, k in r['decimations']]} kf")
+    for x in r["err"]:
+        if x.startswith("[grow] trajectory"):
+            log(f"[endurance] {x}")
+    log(f"[endurance] {json.dumps(line)}; the child ended "
+        f"{r['seconds']:.1f} s after its start (ray casting and warm-up "
+        f"included); launches {r['launches']} "
+        f"[{card}] -- the JAX package on a v5e TPU (not this port's, "
+        f"BENCH_GROW.md round 5): {JAX_ENDURANCE}")
+    check_bench_line(r, "endurance", f"slam_grow{n}_scans_per_sec (circuit "
+                     f"h=100, growing map, gpu)")
+    if led is None or len(wins) != n // 128:
+        fail(f"endurance: ledger {led}, {len(wins)} windows")
+    if not r["decimations"] or led["overflow"] != 0 or r["warnings"]:
+        fail(f"endurance: decimations {r['decimations']}, overflow "
+             f"{led['overflow']}")
+    if not all(math.isfinite(v) for v in [led["mean"], led["max"],
+                                           led["end"]] + rates):
+        fail("endurance: a non-finite number")
+    if not led["end"] < 0.01 * led["dist"]:
+        fail(f"endurance: end drift {led['end']} m >= 1% of "
+             f"{led['dist']} m")
+    if min(r["launches"].values()) <= 0:
+        fail(f"endurance: launches {r['launches']}")
+    paths["endurance"] = r["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to measure",
@@ -2596,6 +2981,11 @@ def main() -> int:
         fail(f"main path: fused ATE {ate:.4f} m >= 0.2 m")
     fused_g, rate_g, _ = graph_phase(scans, cfg, dev, card, fused, n_kf)
     block_launches = block_graph_phase(scans, cfg, dev, card, fused_g, rate_g)
+    early = {"odometry graph": odometry_graph_phase(scans, cfg, dev, card)}
+    # The bench's child processes, alone on the card.
+    with tempfile.TemporaryDirectory() as work:
+        bench_phase(work, card, early)
+        bench_modes_phase(work, card, early)
     med = stage_times(scans, cfg, dev)
     log("[stages] median ms per call: " + ", ".join(
         f"{k} {v:.2f}" for k, v in med.items())
@@ -2759,7 +3149,7 @@ def main() -> int:
         cfg.loop, enabled=True, cadence=1.0, min_time_gap=LOOP_TIME_GAP))
     (fused_l, st_l, poses_l, alog, t_loop), path_launches = counted(
         lambda: loop_run(lcfg, dev))
-    paths = {"main": launches, "block graph": block_launches,
+    paths = {"main": launches, "block graph": block_launches, **early,
              "loop": path_launches}
     gt_l = ground_truth(poses_l, LOOP_SCANS)
     ate_l = float(metrics.ate_rmse(fused_l.t, gt_l))
@@ -2904,6 +3294,7 @@ def main() -> int:
         fail("decimate: the guard never fired or the store overflowed")
     if not (torch.isfinite(fused_d.t).all() and ate_d < 0.2):
         fail(f"decimate: fused ATE {ate_d:.4f} m")
+    bench_decimate_check()
 
     # 9. The IMU path over the main-path world.
     integ = imu_integral(poses)
@@ -3015,7 +3406,7 @@ def main() -> int:
     # path's launches.
     for name, counts in paths.items():
         for k in counts:
-            if counts[k] <= 0:
+            if counts[k] <= 0 and not (k == "knn" and name in NO_KNN):
                 fail(f"{name} path: kernel {k} was never launched")
     log("[launches] per path: " + "; ".join(
         f"{name} {counts}" for name, counts in paths.items()))

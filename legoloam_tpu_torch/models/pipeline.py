@@ -20,7 +20,10 @@ JAX package runs the step as one compiled program.
 The JAX package's block driver fuses B scans into one XLA program to save
 dispatches; ``slam_scan_block`` runs B step bodies through
 ``StepGraph.block``, whose graphs hold the whole block but for the submap
-branch's read, and whose outputs equal B streaming steps'.
+branch's read, and whose outputs equal B streaming steps'.  Odometry alone
+(``odometry_body``) runs on the card as ``step_graph.OdometryGraph``: the
+functional ``odometry_scan_step`` / ``odometry_scan_block`` keep one such
+program and replay it.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from ..ops import features as feat_ops
 from ..ops import projection, se3, segmentation
 from ..ops.features import ScanFeatures
 from ..ops.se3 import Pose
-from ..ops.segments import EAGER, Eager
+from ..ops.segments import EAGER, Eager, map_tree
 from . import fusion as fusion_mod
 from . import loopclosure as loop_mod
 from . import mapping as mapping_mod
@@ -97,13 +100,76 @@ class OdometryOutput(NamedTuple):
     diag: OdometryDiag
 
 
-def odometry_scan_step(state: OdometryState, points, valid, ring,
-                       cfg: PipelineConfig
-                       ) -> Tuple[OdometryState, OdometryOutput]:
-    """Frontend + odometry for one scan."""
+def _odometry(state: OdometryState, points, valid, ring,
+              cfg: PipelineConfig):
     feats = process_scan(points, valid, ring, cfg)
     new_state, pose, diag = odom.odometry_step(state, feats, cfg.odom)
     return new_state, OdometryOutput(pose=pose, diag=diag)
+
+
+def odometry_body(state: OdometryState, points, valid, ring,
+                  cfg: PipelineConfig, rt=EAGER):
+    """Frontend + odometry for one scan on device tensors, as one segment
+    through ``rt`` (no host read): the body of ``odometry_scan_step``,
+    ``odometry_scan_block`` and ``step_graph.OdometryGraph``."""
+    return rt.seg(("odometry",), partial(_odometry, cfg=cfg), state, points,
+                  valid, ring, into=(state, None))
+
+
+# The programs (``step_graph.StepGraph``, ``OdometryGraph``) that the
+# functional drivers keep on the card, one a driver.  A call reuses the kept
+# program only when it is given the state that program returned, so that
+# consecutive calls replay its graphs; any other state starts a new program
+# on a copy of it, and the states returned earlier stay as they were.
+_KEPT: dict = {}
+
+
+def _kept(driver: str, state, same, make):
+    """The program kept for ``driver`` if ``state`` is its state and
+    ``same(program)``, else a new one, ``make(copy of state)``, kept in
+    its place."""
+    g = _KEPT.get(driver)
+    if g is None or g.state is not state or not same(g):
+        g = _KEPT[driver] = make(map_tree(lambda t: t.clone(), state))
+    return g
+
+
+def kept_program(state):
+    """The program a functional driver keeps on the card whose state is
+    ``state`` (the state that driver returned), else None."""
+    for g in _KEPT.values():
+        if g.state is state:
+            return g
+    return None
+
+
+def _on_graph(device, graph: bool) -> bool:
+    """Whether a functional driver on ``device`` runs a kept program."""
+    return graph and torch.device(device).type == "cuda"
+
+
+def _odometry_program(state: OdometryState, cfg: PipelineConfig):
+    from .step_graph import OdometryGraph
+    return _kept("odometry", state, lambda g: g.cfg == cfg,
+                 lambda st: OdometryGraph(st, cfg))
+
+
+def odometry_scan_step(state: OdometryState, points, valid, ring,
+                       cfg: PipelineConfig, graph: bool = True
+                       ) -> Tuple[OdometryState, OdometryOutput]:
+    """Frontend + odometry for one scan.  On the card (unless ``graph`` is
+    False) it runs as the kept ``step_graph.OdometryGraph``: one graph
+    replay.  The returned state is the program's static state: passing it
+    back continues on the same graphs and overwrites it (copy what must
+    outlive that); another state starts a new program on a copy of it.
+    On the CPU the body runs eagerly."""
+    if not _on_graph(state.xi.device, graph):
+        dev = state.xi.device
+        return odometry_body(state, *(torch.as_tensor(a, device=dev)
+                                      for a in (points, valid, ring)), cfg)
+    g = _odometry_program(state, cfg)
+    out = g.step(points, valid, ring)
+    return g.state, out
 
 
 def _stack(outs):
@@ -115,16 +181,24 @@ def _stack(outs):
 
 
 def odometry_scan_block(state: OdometryState, points, valid, ring,
-                        cfg: PipelineConfig
+                        cfg: PipelineConfig, graph: bool = True
                         ) -> Tuple[OdometryState, OdometryOutput]:
-    """B scans ((B, P, 3), (B, P), (B, P)) in order: B calls of
-    ``odometry_scan_step``, outputs stacked on a leading axis."""
-    outs = []
-    for j in range(points.shape[0]):
-        state, out = odometry_scan_step(state, points[j], valid[j], ring[j],
-                                        cfg)
-        outs.append(out)
-    return state, _stack(outs)
+    """B scans ((B, P, 3), (B, P), (B, P)) in order, outputs stacked on a
+    leading axis: B odometry bodies, equal to B calls of
+    ``odometry_scan_step``.  On the card (unless ``graph`` is False) the
+    block is one graph replay of the kept ``step_graph.OdometryGraph``,
+    whose state it returns (as ``odometry_scan_step``; the two drivers keep
+    one program between them)."""
+    if not _on_graph(state.xi.device, graph):
+        outs = []
+        for j in range(points.shape[0]):
+            state, out = odometry_scan_step(state, points[j], valid[j],
+                                            ring[j], cfg, graph=False)
+            outs.append(out)
+        return state, _stack(outs)
+    g = _odometry_program(state, cfg)
+    outs = g.block(points, valid, ring)
+    return g.state, outs
 
 
 class SlamState(NamedTuple):
@@ -333,22 +407,6 @@ def slam_scan_step(state: SlamState, points, valid, ring,
                      run_loop, imu_integral, bootstrap, backend, rt)
 
 
-# The block driver's step graph, kept while its callers pass back the state
-# it returned, so that consecutive blocks replay the same graphs.
-_BLOCK_STEPPER: list = []
-
-
-def _stepper(state, cfg: PipelineConfig, backend: Backend, graph: bool):
-    from .step_graph import StepGraph
-    for sg in _BLOCK_STEPPER:
-        if graph and sg.state is state and sg.cfg == cfg \
-                and sg.backend is backend:
-            return sg
-    sg = StepGraph(state, cfg, backend, graph)
-    _BLOCK_STEPPER[:] = [sg] if sg.captured else []
-    return sg
-
-
 def slam_scan_block(state: SlamState, points, valid, ring,
                     cfg: PipelineConfig, scan_times, run_loop: bool = False,
                     imu_integrals: Optional[deskew_ops.ImuIntegral] = None,
@@ -359,8 +417,9 @@ def slam_scan_block(state: SlamState, points, valid, ring,
     block's first scan, odometry and fusion on every scan — B step bodies
     through ``StepGraph.block`` (on the card one graph before the submap
     branch's read and one after; ``graph=False``: the eager body), outputs
-    stacked on a leading axis.  The returned state is the step graph's:
-    pass it to the next block to replay the same graphs.
+    stacked on a leading axis.  On the card the returned state is the kept
+    step graph's (as ``odometry_scan_step``'s): pass it to the next block
+    to replay the same graphs.
     ``imu_integrals``: each field stacked on a leading B axis.
     ``bootstrap`` (the first block of a run) applies the scan-1
     double-resolve, so it needs B >= 2."""
@@ -369,7 +428,13 @@ def slam_scan_block(state: SlamState, points, valid, ring,
             "slam_scan_block(bootstrap=True) needs a block of >= 2 scans (the "
             "double-resolve applies to scan index 1; use the streaming "
             "driver)")
-    sg = _stepper(state, cfg, backend, graph)
+    from .step_graph import StepGraph
+    if _on_graph(state.odom.xi.device, graph and backend.capturable):
+        sg = _kept("slam block", state,
+                   lambda g: g.cfg == cfg and g.backend is backend,
+                   lambda st: StepGraph(st, cfg, backend))
+    else:
+        sg = StepGraph(state, cfg, backend, graph=False)
     outs = sg.block(points, valid, ring, scan_times, run_loop, imu_integrals,
                     bootstrap)
     return sg.state, outs

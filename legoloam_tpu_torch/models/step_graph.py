@@ -1,7 +1,10 @@
 """The per-scan SLAM step as captured CUDA graphs: the port's counterpart of
 the JAX package's compiled ``slam_scan_step`` and ``slam_scan_block``
 (``jax.jit`` with the statics ``cfg``, ``run_loop``, ``bootstrap`` and the
-block length; ``legoloam_tpu/models/pipeline.py``).
+block length; ``legoloam_tpu/models/pipeline.py``), and with
+``OdometryGraph`` of its compiled ``odometry_scan_step`` and
+``odometry_scan_block`` (odometry alone: a scan one replay, a block of B
+scans one replay, no host read).
 
 ``StepGraph`` owns a static SLAM state and static input buffers and runs
 ``pipeline.step_body`` through a runner whose graphs are CUDA graphs:
@@ -226,31 +229,21 @@ def _put_row(j: int, out, rows):
     return rows
 
 
-class StepGraph:
-    """The per-scan step over a static state: ``step`` runs one scan,
-    ``block`` B scans, ``state`` is the state (its buffers are reused by
-    the next step: copy what must outlive it), ``load`` copies a state in
-    (a resumed checkpoint, a decimated store, a relocalized state).
+class _Program:
+    """A compiled program's shell: a static state adopted by the runner,
+    static input buffers kept by name and shape, and a block's (B, ...)
+    output rows.  ``captured``: the runner is a ``StaticRunner`` (a
+    ``GraphRunner`` on the card), else the body runs eagerly."""
 
-    ``graph``: replay captured CUDA graphs on the card with a capturable
-    backend (``False`` runs the eager body there, the reference that
-    ``chip_smoke.py`` holds the graphs against).  The state given is
-    adopted, not copied."""
-
-    def __init__(self, state, cfg: PipelineConfig, backend: Backend = SINGLE,
-                 graph: bool = True, runner: StaticRunner | None = None):
-        self.cfg = cfg
-        self.backend = backend
-        self.device = state.odom.xi.device
+    def __init__(self, state, device, graph: bool, runner, read_fn=None):
+        self.device = device
         # ``runner``: a ``StaticRunner`` to drive the static-buffer path
         # where there is no card (the CPU tests).
-        read_fn = backend.map_hooks.read
         if runner is not None:
             runner.read_fn = read_fn
             self.rt = runner
         else:
-            self.rt = make_runner(self.device, graph and backend.capturable,
-                                  read_fn)
+            self.rt = make_runner(device, graph, read_fn)
         self.captured = isinstance(self.rt, StaticRunner)
         self._state = self.rt.adopt(state)
         self._inputs: dict = {}
@@ -261,12 +254,12 @@ class StepGraph:
 
     @property
     def reads(self) -> int:
-        """Host reads so far (the submap branch, a loop attempt's)."""
+        """Host reads so far."""
         return self.rt.reads
 
     def load(self, state) -> None:
-        """Make ``state`` the step's state (copied into the static
-        buffers when the step is captured)."""
+        """Make ``state`` the program's state (copied into the static
+        buffers when the program is captured)."""
         if self.captured:
             copy_tree(self._state, state)
         else:
@@ -286,6 +279,40 @@ class StepGraph:
 
     def _on(self, *arrays):
         return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
+
+    def _row(self, j: int, n: int, out, rows):
+        """Scan ``j`` of ``n``'s outputs into the block's output rows (made
+        at scan 0: static when captured), as a segment."""
+        if rows is None:
+            rows = self._inputs.get(("block out", n)) if self.captured \
+                else None
+            if rows is None:
+                rows = map_tree(lambda t: t.new_zeros((n, *t.shape)), out)
+                if self.captured:
+                    self._inputs[("block out", n)] = self.rt.adopt(rows)
+        return self.rt.seg(("block", "row", j, n),
+                           lambda o, r, j=j: _put_row(j, o, r), out, rows,
+                           into=rows)
+
+
+class StepGraph(_Program):
+    """The per-scan step over a static state: ``step`` runs one scan,
+    ``block`` B scans, ``state`` is the state (its buffers are reused by
+    the next step: copy what must outlive it), ``load`` copies a state in
+    (a resumed checkpoint, a decimated store, a relocalized state).
+
+    ``graph``: replay captured CUDA graphs on the card with a capturable
+    backend (``False`` runs the eager body there, the reference that
+    ``chip_smoke.py`` holds the graphs against).  The state given is
+    adopted, not copied."""
+
+    def __init__(self, state, cfg: PipelineConfig, backend: Backend = SINGLE,
+                 graph: bool = True, runner: StaticRunner | None = None):
+        self.cfg = cfg
+        self.backend = backend
+        super().__init__(state, state.odom.xi.device,
+                         graph and backend.capturable, runner,
+                         backend.map_hooks.read)
 
     def step(self, points, valid, ring, scan_time, run_mapping: bool,
              run_loop: bool = False, imu_integral=None,
@@ -337,20 +364,61 @@ class StepGraph:
                 state, *(a[j] for a in scans), self.cfg, j == 0,
                 run_loop and j == 0, integ, bootstrap and j == 1,
                 self.backend, rt=self.rt)
-            if rows is None:
-                rows = self._inputs.get(("block out", n)) if self.captured \
-                    else None
-                if rows is None:
-                    rows = map_tree(lambda t: t.new_zeros((n, *t.shape)),
-                                    out)
-                    if self.captured:
-                        self._inputs[("block out", n)] = self.rt.adopt(rows)
-            rows = self.rt.seg(("block", "row", j, n),
-                               lambda o, r, j=j: _put_row(j, o, r), out,
-                               rows, into=rows)
+            rows = self._row(j, n, out, rows)
         self.rt.flush()
         if self.captured:
             assert all(a is b for a, b in zip(leaves(state),
                                               leaves(self._state)))
         self._state = state
         return map_tree(lambda x: x.clone(), rows)
+
+
+class OdometryGraph(_Program):
+    """Odometry alone (``pipeline.odometry_body``: the frontend and the
+    two-step LM) over a static ``OdometryState``: the counterpart of the
+    JAX package's compiled ``odometry_scan_step`` and
+    ``odometry_scan_block``.  ``step`` runs one scan, ``block`` B scans;
+    the body reads nothing back, so on the card a scan is one graph
+    replay and a block of B scans one replay.  The last clouds, which the
+    next scan's class-NN reads, stay in the static state: nothing is
+    copied a scan but the inputs into their static buffers and the
+    outputs out of theirs.  ``state`` and ``load`` as ``StepGraph``'s;
+    ``graph=False`` runs the eager body on the card."""
+
+    def __init__(self, state, cfg: PipelineConfig, graph: bool = True,
+                 runner: StaticRunner | None = None):
+        self.cfg = cfg
+        super().__init__(state, state.xi.device, graph, runner)
+
+    def step(self, points, valid, ring) -> pipeline.OdometryOutput:
+        """One scan; returns its outputs, which later scans do not
+        overwrite."""
+        scan = self._on(points, valid, ring)
+        if self.captured:
+            scan = self._static("scan", scan)
+        state, out = pipeline.odometry_body(self._state, *scan, self.cfg,
+                                            rt=self.rt)
+        self.rt.flush()
+        if not self.captured:
+            self._state = state
+            return out
+        return map_tree(lambda x: x.clone(), out)
+
+    def block(self, points, valid, ring) -> pipeline.OdometryOutput:
+        """B consecutive scans ((B, P, 3), (B, P), (B, P)): B bodies in
+        order, outputs stacked on a leading axis (a copy of the static
+        rows when captured)."""
+        n = points.shape[0]
+        scans = self._on(points, valid, ring)
+        if self.captured:
+            scans = self._static("block", scans)
+        rows = None
+        state = self._state
+        for j in range(n):
+            state, out = pipeline.odometry_body(
+                state, *(a[j] for a in scans), self.cfg, rt=self.rt)
+            rows = self._row(j, n, out, rows)
+        self.rt.flush()
+        self._state = state
+        return map_tree(lambda x: x.clone(), rows) if self.captured \
+            else rows

@@ -49,7 +49,7 @@ PORT_MODULES = [
     "parallel.mesh", "parallel.costs", "parallel.frontend_dp",
     "parallel.posegraph_dist", "parallel.mapping_dist",
     "parallel.pipeline_dist", "parallel.dryrun", "models.step_graph",
-    "ops.segments"]
+    "ops.segments", "bench"]
 
 
 def test_port_imports_no_jax():
