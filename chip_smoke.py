@@ -69,6 +69,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      greedy trips (the prologue and the cost of a trip); K3's bound from
      the (query, reference) pairs within the gate; each kernel launch's
      device time from torch.profiler;
+  6b. [parity] ccl batched / picks batched: K1 and K2 on batches of 64
+     and 256 DEFAULT scans of the main path's world and of 16 VLS-128
+     scans in one launch, against their plain versions on the batch and
+     against one single-scan launch a scan, exactly; each batch timed
+     (wrapper, bare, device µs, ms a scan, the B single-scan launches,
+     the plain version) beside its bound at B times one scan's bytes;
   7. loop closure at DEFAULT (loop enabled, an attempt a second, the time
      gate cut to 8 s) through run_slam_sequence over the revisit lap of
      tests/test_loop_e2e.py (260 scans at 1.05 m a scan): at least one
@@ -128,7 +134,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (graph=False): fused positions bitwise, equal keyframes, host reads
      per scan 0 / at most 1, scans/s of both; [mesh memory]
      memory.dist_state_bytes against init_dist_state's tensors and
-     allocation;
+     allocation; [frontend dp] make_batched_frontend on the same group at
+     B = 8, 64 and 256 DEFAULT scans of the main path's world and 16
+     VLS-128 scans: one captured graph a call, gates: one graph replay in
+     each of the timed calls (the whole call: a host read inside would
+     split it in two), K1 and K2 each launched once a call, the features
+     bitwise to one eager process_scan a scan (the per-scan loop, whose
+     scans/s is printed beside the replayed calls'), and the peak
+     allocated;
  19. [mesh loop] the loop lap of 7 through run_slam_sequence_dist, as
      captured graphs: at least one accepted closure, fused ATE < 0.5 m, ms
      per attempt;
@@ -137,7 +150,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      solves within tests/test_sharding.py's bounds, and the store's round
      trip through the shards bitwise (printed beside the pose-graph gap:
      the CG chunk reads on each side, optimize on the card vs the CPU,
-     and both solves again at a tighter CG tolerance);
+     and both solves again at a tighter CG tolerance), and
+     make_batched_frontend on 16 DEFAULT scans, 8 a rank, bitwise to
+     [frontend dp]'s single rank on the same 16;
  21. [mesh cli] ``python -m legoloam_tpu_torch --mesh 1`` over the first 100
      session-1 files with --imu --loop-closure (fused ATE < 0.2 m); its
      checkpoint resumed by the single-device CLI over the next 20 files
@@ -214,7 +229,7 @@ from legoloam_tpu_torch.ops import (_native, ccl_cuda, deskew, features,
                                     features_cuda, icp, knn_cuda, projection,
                                     se3, segmentation, segments, voxel)
 from legoloam_tpu_torch.ops.se3 import Pose, transform_points
-from legoloam_tpu_torch.parallel import mapping_dist
+from legoloam_tpu_torch.parallel import frontend_dp, mapping_dist
 from legoloam_tpu_torch.parallel import mesh as mesh_mod
 from legoloam_tpu_torch.parallel import pipeline_dist, posegraph_dist
 from legoloam_tpu_torch.utils import (checkpoint, export, io, memory,
@@ -361,8 +376,22 @@ JAX_ENDURANCE = ("132.35 scans/s; decimated to 2283 and 2272 kf (BENCH_GROW."
                  "counts place them after 12160 and 17408); 16.4 km, abs "
                  "err mean 1.46 m, max 2.43 m, end 1.85 m (0.011%), "
                  "overflow 0")
-# Paths that run odometry alone: no K3 (its class-NN is ops/voxel.py's).
-NO_KNN = ("odometry graph", "bench odometry", "bench odometry --block 1")
+# [parity] ccl / picks batched and [frontend dp]: batches of the main
+# path's world at DEFAULT (B = FDP_PARITY and max(FDP_BATCHES) for the
+# kernels, FDP_BATCHES through make_batched_frontend) and FDP_VLS VLS-128
+# scans along it, the sizes offline map building hands a rank (B = 256:
+# 25.6 s of a 10 Hz drive);
+# FDP_CALLS timed calls a batch size.  [mesh x2]: X2_FRONTEND scans over its
+# two ranks.
+FDP_PARITY = 64
+FDP_BATCHES = (8, 64, 256)
+FDP_VLS = 16
+FDP_CALLS = 5
+X2_FRONTEND = 16
+# Paths that run no K3: odometry alone (its class-NN is ops/voxel.py's) and
+# the frontend.
+NO_KNN = ("odometry graph", "bench odometry", "bench odometry --block 1",
+          "frontend dp")
 
 
 def fail(msg: str):
@@ -412,17 +441,23 @@ def bound_ms(n_bytes: float, n_ops: float):
 # Inputs
 # ---------------------------------------------------------------------------
 
-def make_scans(cfg, dev):
-    """Distinct ring-world scans with motion distortion (the JAX package's
-    bench.py --grow world) and the ground-truth trajectory."""
+def make_scans(cfg, dev, n=N_SCANS):
+    """``n`` distinct ring-world scans with motion distortion (the JAX
+    package's bench.py --grow world) and the ground-truth trajectory."""
     scene = synthetic.loop_scene()
-    poses = synthetic.circle_trajectory(N_SCANS + 1, radius=30.0,
+    poses = synthetic.circle_trajectory(n + 1, radius=30.0,
                                         angular_rate=0.009, device=dev)
     scans = [synthetic.raycast_scan(
         scene, Pose(poses.R[k], poses.t[k]), cfg.sensor,
         next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
-        for k in range(N_SCANS)]
+        for k in range(n)]
     return scans, poses
+
+
+def stacked(scans):
+    """A list of (points, valid, ring) scans as one batch of three
+    (B, ...) tensors."""
+    return tuple(torch.stack(x) for x in zip(*scans))
 
 
 def ccl_inputs(img, cfg):
@@ -435,13 +470,14 @@ def ccl_inputs(img, cfg):
 
 def frontend_inputs(scan, cfg):
     """K1 inputs and K2 inputs (compacted ranges, columns, ground flags,
-    counts) of one scan, as the main path forms them."""
+    counts) of one scan, or of a batch of scans ((B, P, 3) points ...), as
+    the main path forms them."""
     img = projection.project_scan(*scan[:2], cfg.sensor, ring=scan[2])
     k1 = ccl_inputs(img, cfg)
     seg = segmentation.segment(img, cfg.sensor, cfg.seg)
     c, count = features._compact_rings(img, seg)
-    in_ring = torch.arange(img.rng.shape[1], device=count.device)[None] \
-        < count[:, None]
+    in_ring = torch.arange(img.rng.shape[-1], device=count.device) \
+        < count[..., None]
     rng = torch.where(in_ring, c["rng"], torch.zeros_like(c["rng"]))
     k2 = (rng, c["col"], c["ground"], count)
     return k1, k2
@@ -682,25 +718,28 @@ def stage_times(scans, cfg, dev):
 
 
 def bare_ccl(seeds, ch, cv):
-    """The K1 entry point on prepared device buffers (no wrapper checks)."""
+    """The K1 entry point on prepared device buffers (no wrapper checks),
+    for (N, H) masks or a batch (B, N, H)."""
     lib = _native.library()
-    n, h = seeds.shape
-    bufs = [torch.empty(n * h, dtype=torch.int32, device=seeds.device)
-            for _ in range(5)]
+    n, h = seeds.shape[-2:]
+    b = seeds.numel() // (n * h)
+    bufs = [torch.empty(seeds.numel(), dtype=torch.int32,
+                        device=seeds.device) for _ in range(5)]
     st = _native.stream_handle(seeds)
     return lambda: lib.ccl_launch(seeds.data_ptr(), ch.data_ptr(),
-                                  cv.data_ptr(), *(b.data_ptr() for b in bufs),
-                                  n, h, st)
+                                  cv.data_ptr(), *(t.data_ptr() for t in bufs),
+                                  b, n, h, st)
 
 
 def bare_picks(rng, col, grd, cnt, f):
     lib = _native.library()
-    n, h = rng.shape
-    out = torch.empty((n, h), dtype=torch.int32, device=rng.device)
+    n, h = rng.shape[-2:]
+    b = rng.numel() // (n * h)
+    out = torch.empty(rng.shape, dtype=torch.int32, device=rng.device)
     st = _native.stream_handle(rng)
     return lambda: lib.picks_launch(
         rng.data_ptr(), col.data_ptr(), grd.data_ptr(), cnt.data_ptr(),
-        out.data_ptr(), n, h, f.sections, f.curvature_halfwin,
+        out.data_ptr(), b, n, h, f.sections, f.curvature_halfwin,
         f.edge_less_per_section, f.edge_per_section, f.surf_per_section,
         f.edge_threshold, f.surf_threshold, f.occlusion_col_gap,
         f.occlusion_range_jump, f.parallel_beam_frac, st)
@@ -1890,6 +1929,155 @@ def new_phases(dev, card, paths, err):
 # The distributed paths (legoloam_tpu_torch/parallel/)
 # ---------------------------------------------------------------------------
 
+def batched_kernels_phase(batches, card):
+    """[parity] ccl batched / picks batched: K1 and K2 on a batch of scans
+    in one launch (``batches``: (name, batch, config) triples) against their
+    plain versions on the same batch and against one single-scan launch a
+    scan, exactly; then each batched launch's time (wrapper, bare, device
+    µs), the time a scan, B single-scan launches, the plain version's time,
+    and the bound at B times one scan's bytes."""
+    for name, batch, c in batches:
+        (seeds, ch, cv), k2 = frontend_inputs(batch, c)
+        b, n, h = seeds.shape
+        it = c.seg.ccl_max_iters
+        got = ccl_cuda.label_propagation(seeds, ch, cv, it)
+        *want, sweeps = ccl_cuda.label_propagation_plain(seeds, ch, cv, it)
+        one = [ccl_cuda.label_propagation(seeds[k], ch[k], cv[k], it)
+               for k in range(b)]
+        torch.cuda.synchronize()
+        if sweeps >= it:
+            fail(f"ccl batched {name}: the plain sweeps hit the cap")
+        for i, field in enumerate(("labels", "ring_min", "ring_max")):
+            if not torch.equal(got[i], want[i]):
+                fail(f"ccl batched {name} {field}: "
+                     f"{(got[i] != want[i]).sum().item()} cells differ from "
+                     "the plain version")
+            if not torch.equal(got[i], torch.stack([o[i] for o in one])):
+                fail(f"ccl batched {name} {field}: differs from the "
+                     "single-scan launches")
+        log(f"[parity] ccl batched {name} {b} x {n} x {h}: labels and ring "
+            f"extrema equal to the plain version's ({sweeps} sweeps) and to "
+            f"{b} single-scan launches")
+        got = features_cuda.pick_labels(*k2, c.feat)
+        want = features_cuda.pick_labels_plain(*k2, c.feat)
+        one = torch.stack([features_cuda.pick_labels(*(a[k] for a in k2),
+                                                     c.feat)
+                           for k in range(b)])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"picks batched {name}: {(got != want).sum().item()} labels "
+                 "differ from the plain version")
+        if not torch.equal(got, one):
+            fail(f"picks batched {name}: differs from the single-scan "
+                 "launches")
+        if int((got != 0).sum()) < 100 * b:
+            fail(f"picks batched {name}: too few picks for real scans")
+        log(f"[parity] picks batched {name} {b} x {n} x {h}: "
+            f"{int((got != 0).sum())} picks, label for label equal to the "
+            f"plain version's and to {b} single-scan launches")
+        for kname, call, single, plain, bare, nbytes, nops in (
+                ("ccl",
+                 lambda: ccl_cuda.label_propagation(seeds, ch, cv, it),
+                 lambda: [ccl_cuda.label_propagation(seeds[k], ch[k], cv[k],
+                                                     it) for k in range(b)],
+                 lambda: ccl_cuda.label_propagation_plain(seeds, ch, cv, it),
+                 bare_ccl(seeds, ch, cv), b * ccl_bytes(n, h), 0.0),
+                ("picks",
+                 lambda: features_cuda.pick_labels(*k2, c.feat),
+                 lambda: [features_cuda.pick_labels(*(a[k] for a in k2),
+                                                    c.feat)
+                          for k in range(b)],
+                 lambda: features_cuda.pick_labels_plain(*k2, c.feat),
+                 bare_picks(*k2, c.feat), b * picks_bytes(n, h),
+                 b * picks_ops(n, h))):
+            ms = time_ms(call, 50)
+            per = device_us_per_launch(call)
+            bnd, by = bound_ms(nbytes, nops)
+            log(f"[{kname}] batched {name} {b} x {n} x {h}: ms {ms:.4f} a "
+                f"batch ({ms / b:.5f} a scan), bare {bare_ms(bare, 100):.4f}, "
+                f"device " + (", ".join(f"{k} {v:.2f}" for k, v in
+                                        per.items()) or "not measured")
+                + f" us; {b} single-scan launches {time_ms(single, 5):.4f} "
+                f"ms; plain {time_ms(plain, 3, 1):.3f} ms; bound "
+                f"{bnd:.6f} ({by}) [{card}]")
+
+
+def per_scan_frontend(batch, cfg):
+    """The data-parallel frontend's body before it took a batch axis: one
+    eager ``process_scan`` a scan, the outputs stacked."""
+    return pipeline._stack([pipeline.process_scan(*(a[i] for a in batch),
+                                                  cfg)
+                            for i in range(batch[0].shape[0])])
+
+
+def frontend_dp_phase(mesh, runs, card):
+    """[frontend dp]: ``make_batched_frontend`` on ``mesh`` (the NCCL group
+    of one rank) for each run (name -> (batch, config)): the first call
+    warms up and captures, then FDP_CALLS timed calls, each with the launch
+    counts read around it.  Gates: one graph replay a timed call (a host
+    read inside the body would split it into two chains, and a capture
+    cannot read), K1 and K2 each launched once a call (no K3), and the
+    features of the first and the last call bitwise to one eager
+    ``process_scan`` a scan on the card (the per-scan loop, timed
+    beside).  Returns the launches of the timed calls and, for [mesh x2],
+    an X2_FRONTEND-scan batch and its features on this rank, on the
+    CPU."""
+    total = {k: 0 for k in _native.KERNELS}
+    fns = {}
+    for name, (batch, c) in runs.items():
+        b = batch[0].shape[0]
+        fn = fns.get(c.sensor.name)
+        if fn is None:
+            fn = fns[c.sensor.name] = frontend_dp.make_batched_frontend(c,
+                                                                        mesh)
+        rt = fn.program.rt
+        if not fn.program.captured:
+            fail("frontend dp: the rank's frontend is not captured")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (first, idx), t_cap = timed(lambda: fn(*batch))
+        r0 = rt.replays
+        secs = []
+        for _ in range(FDP_CALLS):
+            ((out, _), sec), n = counted(lambda: timed(lambda: fn(*batch)))
+            secs.append(sec)
+            if (n["ccl"], n["picks"], n["knn"]) != (1, 1, 0):
+                fail(f"frontend dp {name}: launches {n} in one call")
+            for k in total:
+                total[k] += n[k]
+        replays = rt.replays - r0
+        peak = torch.cuda.max_memory_allocated()
+        ref, t_loop = timed(lambda: per_scan_frontend(batch, c))
+        same = all(torch.equal(a, r) and torch.equal(f, r) for a, f, r in zip(
+            segments.leaves(out), segments.leaves(first),
+            segments.leaves(ref), strict=True))
+        med = sorted(secs)[len(secs) // 2]
+        log(f"[frontend dp] {name}: make_batched_frontend on the NCCL group "
+            f"of one rank, B = {b} (indices {idx[0].item()}..{idx[-1].item()}"
+            f"): first call (warm-up and capture) {t_cap:.3f} s; {FDP_CALLS} "
+            f"calls, {replays} graph replays (so no host read), K1 / K2 / "
+            f"K3 launches a call 1 / 1 / 0; replayed {b / med:.1f} scans/s "
+            f"({med * 1e3:.2f} ms a call, median) vs the per-scan loop "
+            f"{b / t_loop:.1f} scans/s ({t_loop * 1e3:.1f} ms, "
+            f"{t_loop / med:.1f}x); features bitwise to one process_scan a "
+            f"scan: {same}; peak allocated {peak / 2**30:.3f} GiB, "
+            f"{(peak - base) / 2**30:.3f} GiB above the allocation before "
+            f"the first call (the earlier batch sizes' graphs and the "
+            f"batches stay allocated) [{card}]")
+        if replays != FDP_CALLS:
+            fail(f"frontend dp {name}: {replays} replays in {FDP_CALLS} "
+                 "calls")
+        if not same:
+            fail(f"frontend dp {name}: features differ from process_scan's")
+        if not int(out.sharp.valid.sum()) > 10 * b:
+            fail(f"frontend dp {name}: too few sharp features")
+    batch, c = runs[f"DEFAULT B={max(FDP_BATCHES)}"]
+    x2 = tuple(a[:X2_FRONTEND] for a in batch)
+    feats, _ = fns[c.sensor.name](*x2)
+    return total, (to_device(x2, "cpu"), to_device(feats, "cpu"))
+
+
 def one_rank_mesh(work, dev):
     """An NCCL process group of one rank on this card, in this process, and
     its mesh."""
@@ -1946,6 +2134,10 @@ def x2_rank(mesh, path_in, path_out):
         solves[name] = posegraph_dist.optimize_sharded(*pg, pcfg, mesh,
                                                        rt=rt) + (rt.reads,)
     T, it, nc, ns = mapping_dist.scan_to_map_sharded(*s2m, cfg.mapping, mesh)
+    feats, idx = frontend_dp.make_batched_frontend(cfg, mesh)(
+        *inp["frontend"])
+    torch.save({"feats": to_device(feats, "cpu"), "idx": idx},
+               f"{path_out}.frontend{mesh.rank}")
     dkf = pipeline_dist.from_keyframe_store(kf, mesh)
     back0 = pipeline_dist.to_keyframe_store(dkf, mesh)
     back = pipeline_dist.to_keyframe_store(dkf, mesh, everywhere=True)
@@ -1973,10 +2165,12 @@ def x2_pg_cfgs(cfg):
         cfg.posegraph, pcg_tol=X2_TIGHT_TOL)}
 
 
-def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths):
-    """[mesh], [mesh memory], [mesh loop] on an NCCL group of one rank in
-    this process, and [mesh x2] on two gloo ranks sharing the card.
-    ``main``: (fused, keyframes, scans/s) of the single-device [main]."""
+def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths,
+                fdp_runs):
+    """[mesh], [mesh memory], [frontend dp], [mesh loop] on an NCCL group of
+    one rank in this process, and [mesh x2] on two gloo ranks sharing the
+    card.  ``main``: (fused, keyframes, scans/s) of the single-device
+    [main]; ``fdp_runs``: [frontend dp]'s batches."""
     mesh = one_rank_mesh(work, dev)
     try:
         fused_m, n_kf_m, rate_m = main
@@ -2000,6 +2194,7 @@ def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths):
                  "keyframes")
         del st
         mesh_graph_phase(mesh, scans, cfg, card, rate_m, N_SCANS / sec)
+        paths["frontend dp"], x2_fe = frontend_dp_phase(mesh, fdp_runs, card)
 
         # The distributed state's bytes: the budget and the allocation.
         budget = memory.dist_state_bytes(cfg, 1)
@@ -2062,7 +2257,7 @@ def mesh_phases(work, cfg, lcfg, dev, card, scans, poses, main, paths):
         del st_l
     finally:
         dist.destroy_process_group()
-    x2_phase(work, cfg, dev, card, pg, scans)
+    x2_phase(work, cfg, dev, card, pg, scans, x2_fe)
 
 
 def mesh_graph_phase(mesh, scans, cfg, card, rate_main, rate_mesh):
@@ -2115,12 +2310,14 @@ def mesh_graph_phase(mesh, scans, cfg, card, rate_main, rate_mesh):
         fail(f"mesh graph: host reads per scan {reads}")
 
 
-def x2_phase(work, cfg, dev, card, pg, scans):
+def x2_phase(work, cfg, dev, card, pg, scans, x2_fe):
     """[mesh x2]: two ranks on the one card over gloo with CUDA tensors
     (NCCL takes one rank per card): the sharded pose graph (the mesh loop's
     final graph) and scan-to-map (the 6-scan store's last keyframe against
     its submap, from a guess moved 0.2 m and 1 degree) against the
-    single-device solves, and the 6-scan DEFAULT store's round trip."""
+    single-device solves, the 6-scan DEFAULT store's round trip, and the
+    data-parallel frontend on ``x2_fe``'s batch split over the two ranks
+    against its features on [frontend dp]'s single rank, bitwise."""
     _, st = pipeline.run_slam_sequence(scans[:6], cfg, device=dev)
     kf, cache = st.mapping.kf, st.mapping.cache
     last = int(kf.count) - 1
@@ -2140,12 +2337,18 @@ def x2_phase(work, cfg, dev, card, pg, scans):
     path_out = os.path.join(work, "x2_out.pt")
     torch.save({"cfg": cfg, "pg": to_device(pg, "cpu"),
                 "s2m": to_device(s2m, "cpu"),
-                "kf": to_device(kf, "cpu")}, path_in)
+                "kf": to_device(kf, "cpu"), "frontend": x2_fe[0]}, path_in)
     t0 = time.perf_counter()
     mesh_mod.launch(x2_rank, 2, args=(path_in, path_out), device=dev,
                     backend="gloo", timeout_s=600)
     sec = time.perf_counter() - t0
     out = torch.load(path_out, weights_only=False)
+    fe = [torch.load(f"{path_out}.frontend{r}", weights_only=False)
+          for r in range(2)]
+    fe_idx = torch.cat([f["idx"] for f in fe]).tolist()
+    fe_same = all(torch.equal(torch.cat(parts), want) for *parts, want in zip(
+        *(segments.leaves(f["feats"]) for f in fe),
+        segments.leaves(x2_fe[1]), strict=True))
     TR, Tt, it, nc, ns = out["s2m"]
     n = int(pg[2])
     gaps = {}
@@ -2171,8 +2374,10 @@ def x2_phase(work, cfg, dev, card, pg, scans):
         f"{int(ns1)}, position {s_gap:.3g} m, rotation {s_rot:.3g}; the "
         f"{kf.t.shape[0]}-slot store ({out['slots']} slots a rank) back "
         f"bitwise on rank 0 {out['roundtrip_rank0']} and on every rank "
-        f"{out['roundtrip_everywhere']}; rank 0's launches "
-        f"{out['launches']} [{card}]")
+        f"{out['roundtrip_everywhere']}; make_batched_frontend on "
+        f"{len(fe_idx)} scans, {len(fe_idx) // 2} a rank: indices "
+        f"{fe_idx[0]}..{fe_idx[-1]}, features bitwise to the single rank's "
+        f"{fe_same}; rank 0's launches {out['launches']} [{card}]")
     if not (pg_gap < 1e-3 and pg_rot < 1e-3):
         fail("mesh x2: optimize_sharded outside 1e-3 of optimize")
     if not (abs(it - int(it1)) <= 1 and abs(nc - int(nc1)) <= 5
@@ -2180,6 +2385,9 @@ def x2_phase(work, cfg, dev, card, pg, scans):
         fail("mesh x2: scan_to_map_sharded outside the bounds")
     if not (out["roundtrip_rank0"] and out["roundtrip_everywhere"]):
         fail("mesh x2: the store's round trip is not bitwise")
+    if not fe_same or fe_idx != list(range(X2_FRONTEND)):
+        fail("mesh x2: the frontend split over two ranks differs from the "
+             "single rank's")
 
 
 def mesh_cli_phase(work, cfg, dev, card, s1, imu_path, ckpt, poses, paths):
@@ -3144,6 +3352,23 @@ def main() -> int:
         + ", ".join(f"{t} {v:.2f}" for t, v in split.items())
         + f"; {(split[56] - split[28]) / 28:.3f} us a trip [{card}]")
 
+    # K1 and K2 on batches of scans (one launch a batch), and the batches
+    # [frontend dp] runs through make_batched_frontend.
+    t0 = time.perf_counter()
+    world = stacked(make_scans(cfg, dev, max(FDP_BATCHES))[0])
+    vcfg = for_sensor("vls128")
+    vls = stacked(make_scans(vcfg, dev, FDP_VLS)[0])
+    torch.cuda.synchronize()
+    log(f"[scans] {max(FDP_BATCHES)} DEFAULT and {FDP_VLS} VLS-128 scans "
+        f"of the main path's world ray-cast in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batched_kernels_phase(
+        [("vlp16", tuple(a[:FDP_PARITY] for a in world), cfg),
+         ("vlp16", world, cfg), ("vls128", vls, vcfg)], card)
+    fdp_runs = {f"DEFAULT B={b}": (tuple(a[:b] for a in world), cfg)
+                for b in FDP_BATCHES}
+    fdp_runs[f"VLS-128 B={FDP_VLS}"] = (vls, vcfg)
+
     # 7. Loop closure at DEFAULT on the revisit lap.
     lcfg = cfg.replace(loop=dataclasses.replace(
         cfg.loop, enabled=True, cadence=1.0, min_time_gap=LOOP_TIME_GAP))
@@ -3390,7 +3615,8 @@ def main() -> int:
     # 18-20. The distributed paths on the card.
     with tempfile.TemporaryDirectory() as work:
         mesh_phases(work, cfg, lcfg, dev, card, scans, poses,
-                    (fused, n_kf, N_SCANS / t_run), paths)
+                    (fused, n_kf, N_SCANS / t_run), paths, fdp_runs)
+    del world, vls, fdp_runs
 
     with tempfile.TemporaryDirectory() as work:
         s1, imu_path, ckpt, cli_poses = cli_phases(work, cfg, dev, card,

@@ -5,9 +5,15 @@
 // (N, H) label grid held in TPU VMEM until a fixpoint.
 //
 // Output (see legoloam_tpu_torch/ops/ccl_cuda.py): per cell the component's
-// minimum flat index (non-seeds: N*H), its minimum ring (label / H) and its
-// maximum ring (non-seeds: -1).  These values are fully determined by the
-// partition, so any correct labelling gives bit-identical output.
+// minimum flat index within its scan's image (non-seeds: N*H), its minimum
+// ring (label / H) and its maximum ring (non-seeds: -1).  These values are
+// fully determined by the partition, so any correct labelling gives
+// bit-identical output.  A batch of B scans (B x N x H, scan-major) is one
+// launch of each kernel below: the scans' images are disjoint arrays, each
+// addressed by its scan's offset, so no component crosses a scan and a scan
+// computes what it computes alone.  The batch is what fills the card: one
+// VLP-16 scan gives the local pass 29 blocks and the seam pass one, of the
+// H100's 132 SMs (the JAX package's vmap adds the same leading grid axis).
 //
 // What bounds it on the H100: latency.  A VLP-16 scan is 28.8K cells; the
 // inputs are ~86 KB of masks and the outputs 346 KB of int32 planes, well
@@ -20,7 +26,7 @@
 // parents only decrease and each root is its tree's minimum index; any
 // ancestor may then replace a parent (path compression) without a race
 // breaking the forest.  Three launches:
-//   ccl_local   one block per tile of all N rings x W columns (W a
+//   ccl_local   one block per tile of all N rings x W columns and scan (W a
 //               multiple of 32, chosen in ccl_launch; VLP-16: 16 x 64 =
 //               1024 cells, one thread each).  In shared memory: each
 //               32-column row segment points every cell at its run's start
@@ -30,14 +36,15 @@
 //               the component's ring maximum (atomicMax).  Writes every
 //               seed cell's global parent (its tile root) and the tile
 //               component's ring maximum.
-//   ccl_seams   one block: unites across the tile seams, the column-wrap
+//   ccl_seams   one block a scan: unites across the tile seams, the column-wrap
 //               seam included, in global memory; then every cell of a
 //               linked seam folds its tile component's ring maximum into the
 //               global root and points its tile root at the global root.  A
 //               tile component that joins another has such a cell, so
 //               every root ends with its component's ring maximum, and
 //               a cell is a few links at most from its root.
-//   ccl_resolve one thread per cell: root, ring minimum, ring maximum.
+//   ccl_resolve one thread per cell of the batch: root, ring minimum, ring
+//               maximum.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,6 +104,13 @@ __global__ void __launch_bounds__(kLocalThreads)
               const uint8_t* __restrict__ conn_h,
               const uint8_t* __restrict__ conn_v, int* __restrict__ parent,
               int* __restrict__ rmax, int n, int h, int w) {
+  // This block's scan: every array below is that scan's image.
+  const size_t scan = static_cast<size_t>(blockIdx.y) * n * h;
+  seed += scan;
+  conn_h += scan;
+  conn_v += static_cast<size_t>(blockIdx.y) * (n - 1) * h;
+  parent += scan;
+  rmax += scan;
   extern __shared__ int smem[];
   int* sp = smem;          // tile-local parents, index r * w + j
   int* srm = smem + n * w;  // ring maximum at each tile root
@@ -161,6 +175,11 @@ __global__ void __launch_bounds__(kSeamThreads)
     ccl_seams(const uint8_t* __restrict__ seed,
               const uint8_t* __restrict__ conn_h, int* parent, int* rmax,
               int n, int h, int w) {
+  const size_t scan = static_cast<size_t>(blockIdx.x) * n * h;
+  seed += scan;
+  conn_h += scan;
+  parent += scan;
+  rmax += scan;
   const int n_tiles = (h + w - 1) / w;
   volatile int* vp = parent;
   for (int s = threadIdx.x; s < n * n_tiles; s += kSeamThreads) {
@@ -188,19 +207,20 @@ __global__ void ccl_resolve(const uint8_t* __restrict__ seed,
                             const int* __restrict__ parent,
                             const int* __restrict__ rmax, int* labels,
                             int* ring_min, int* ring_max, int n_cells,
-                            int h) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_cells) return;
+                            int h, size_t total) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const size_t scan = i / n_cells * n_cells;  // the cell's scan's offset
   if (!seed[i]) {
     labels[i] = n_cells;
     ring_min[i] = n_cells / h;
     ring_max[i] = -1;
     return;
   }
-  const int root = find_root(parent, i);
+  const int root = find_root(parent + scan, static_cast<int>(i - scan));
   labels[i] = root;
   ring_min[i] = root / h;
-  ring_max[i] = rmax[root];
+  ring_max[i] = rmax[scan + root];
 }
 
 }  // namespace
@@ -208,7 +228,7 @@ __global__ void ccl_resolve(const uint8_t* __restrict__ seed,
 extern "C" int ccl_launch(const void* seed, const void* conn_h,
                           const void* conn_v, void* parent, void* labels,
                           void* ring_min, void* ring_max, void* rmax_root,
-                          int n, int h, void* stream) {
+                          int b, int n, int h, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // Tiles of at least kMinTileW columns, W a multiple of 32; tall sensors
   // take wider tiles so that the one-block seam pass runs at most two rounds
@@ -219,7 +239,9 @@ extern "C" int ccl_launch(const void* seed, const void* conn_h,
   const int n_tiles = (h + w - 1) / w;
   const int n_cells = n * h;
   const size_t smem = 2 * static_cast<size_t>(n) * w * sizeof(int);
-  if (n < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || h < 1 || b < 0 || b > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0) return 0;
   if (smem > 48 * 1024) {
     cudaError_t e = raise_smem_limit(
         reinterpret_cast<const void*>(ccl_local), static_cast<int>(smem));
@@ -229,11 +251,13 @@ extern "C" int ccl_launch(const void* seed, const void* conn_h,
   const auto* ch = static_cast<const uint8_t*>(conn_h);
   int* par = static_cast<int*>(parent);
   int* rmx = static_cast<int*>(rmax_root);
-  ccl_local<<<n_tiles, min(kLocalThreads, n * w), smem, s>>>(
+  const size_t total = static_cast<size_t>(b) * n_cells;
+  ccl_local<<<dim3(n_tiles, b), min(kLocalThreads, n * w), smem, s>>>(
       sd, ch, static_cast<const uint8_t*>(conn_v), par, rmx, n, h, w);
-  ccl_seams<<<1, kSeamThreads, 0, s>>>(sd, ch, par, rmx, n, h, w);
-  ccl_resolve<<<(n_cells + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+  ccl_seams<<<b, kSeamThreads, 0, s>>>(sd, ch, par, rmx, n, h, w);
+  ccl_resolve<<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
+                kThreads, 0, s>>>(
       sd, par, rmx, static_cast<int*>(labels), static_cast<int*>(ring_min),
-      static_cast<int*>(ring_max), n_cells, h);
+      static_cast<int*>(ring_max), n_cells, h, total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,11 @@
 // the chain of dependent steps in one block, trip after trip (chip_smoke's
 // "[picks] ... by greedy trips" line splits the prologue from the trips).
 //
-// Design: one block per ring, max(sections, 16) warps.
+// Design: one block per ring, max(sections, 16) warps; a batch of B scans
+// (B x N rings, scan-major) is one launch on a grid of (N, B) blocks, each
+// ring of each scan on its own, so a scan's labels are its labels alone.
+// One VLP-16 scan gives 16 blocks for the H100's 132 SMs: the batch (the
+// JAX package's vmap adds the same leading grid axis) is what fills it.
 //   * Prologue, all warps.  The row goes to shared memory (16-byte vector
 //     loads where the shapes allow; ranges padded with zeros, so no
 //     neighbour read is bounds-checked).  Pass 2 computes curvature in the
@@ -232,7 +236,7 @@ picks_kernel(const float* __restrict__ rng_in, const int* __restrict__ col_in,
   int8_t* label = reinterpret_cast<int8_t*>(smem + lay.label);
   int2* slots = reinterpret_cast<int2*>(smem + lay.slots);  // [2][32]
 
-  const int r = blockIdx.x;
+  const int r = blockIdx.y * gridDim.x + blockIdx.x;  // row of the batch
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int warp = tid >> 5;
@@ -434,15 +438,15 @@ const KernelFn kRegKernels[] = {picks_kernel<2>,  picks_kernel<4>,
 
 extern "C" int picks_launch(const void* rng, const void* col,
                             const void* ground, const void* count,
-                            void* label, int n, int h, int sections,
+                            void* label, int b, int n, int h, int sections,
                             int halfwin, int edge_trips, int edge_sharp,
                             int surf_trips, float edge_thr, float surf_thr,
                             int col_gap, float range_jump,
                             float parallel_frac, void* stream) {
   if (sections < 1 || sections > 32 || halfwin < 0 || halfwin > 255 ||
-      h < 1)
+      h < 1 || b < 0 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
+  if (n == 0 || b == 0) return 0;
   const int pad = ((halfwin > 1 ? halfwin : 1) + 3) & ~3;
   const bool vec = h % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(rng) % 16 == 0 &&
@@ -477,7 +481,7 @@ extern "C" int picks_launch(const void* rng, const void* col,
         raise_smem_limit(reinterpret_cast<const void*>(fn), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  fn<<<n, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fn<<<dim3(n, b), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rng), static_cast<const int*>(col),
       static_cast<const uint8_t*>(ground), static_cast<const int*>(count),
       static_cast<int*>(label), p);

@@ -54,7 +54,9 @@ def process_scan(points, valid, ring, cfg: PipelineConfig,
                  imu_integral: Optional[deskew_ops.ImuIntegral] = None,
                  scan_start_time=0.0) -> ScanFeatures:
     """Frontend: raw scan -> features (imageProjection + the feature half of
-    featureAssociation), de-skewed by ``imu_integral`` when given."""
+    featureAssociation), de-skewed by ``imu_integral`` when given.  The ops
+    take a leading batch axis as they come; a batch of scans goes through
+    ``process_scans``, the one batched entry."""
     img = projection.project_scan(points, valid, cfg.sensor, ring=ring)
     if not cfg.deskew:
         # Rigid clouds: every point sits at the scan-end frame (rel_time 1).
@@ -67,6 +69,18 @@ def process_scan(points, valid, ring, cfg: PipelineConfig,
             scan_period=cfg.sensor.scan_period).xyz
     return feat_ops.extract_features(img, seg, cfg.sensor, cfg.feat,
                                      xyz_deskewed=xyz)
+
+
+def process_scans(points, valid, ring, cfg: PipelineConfig) -> ScanFeatures:
+    """The frontend of B scans at once: points (B, P, 3), valid (B, P),
+    ring (B, P) -> ``ScanFeatures`` with a leading (B,) on every field, each
+    scan's equal to its own ``process_scan`` (no IMU), as the JAX package
+    vmaps ``process_scan``.  One launch of K1 and one of K2 a call;
+    ``step_graph.FrontendGraph`` runs it as one captured graph."""
+    if points.dim() != 3:
+        raise ValueError(f"process_scans takes (B, P, 3) points, got "
+                         f"{tuple(points.shape)}")
+    return process_scan(points, valid, ring, cfg)
 
 
 def process_scan_with_imu(points, valid, ring, cfg: PipelineConfig,

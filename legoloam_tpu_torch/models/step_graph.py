@@ -4,7 +4,9 @@ the JAX package's compiled ``slam_scan_step`` and ``slam_scan_block``
 block length; ``legoloam_tpu/models/pipeline.py``), and with
 ``OdometryGraph`` of its compiled ``odometry_scan_step`` and
 ``odometry_scan_block`` (odometry alone: a scan one replay, a block of B
-scans one replay, no host read).
+scans one replay, no host read), and with ``FrontendGraph`` of the
+data-parallel frontend's ``jit(vmap(process_scan))`` (a batch of scans one
+replay, no host read).
 
 ``StepGraph`` owns a static SLAM state and static input buffers and runs
 ``pipeline.step_body`` through a runner whose graphs are CUDA graphs:
@@ -43,6 +45,7 @@ back to the eager body.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
@@ -422,3 +425,32 @@ class OdometryGraph(_Program):
         self._state = state
         return map_tree(lambda x: x.clone(), rows) if self.captured \
             else rows
+
+
+class FrontendGraph(_Program):
+    """The frontend of a batch of scans (``pipeline.process_scans``) as one
+    program: the counterpart of the JAX package's ``jit(vmap(
+    process_scan))`` (``parallel/frontend_dp.py``).  A call copies the batch
+    into static (B, P, ...) buffers and runs the body as one segment; on
+    the card its first call with a batch shape runs eagerly (the warm-up,
+    which also makes every ``device.const``) and is captured, and every
+    later call with that shape is one graph replay with no host read.  A
+    graph is kept for each batch shape seen.  The CPU runs it eagerly."""
+
+    def __init__(self, cfg: PipelineConfig, device,
+                 runner: StaticRunner | None = None):
+        self.cfg = cfg
+        super().__init__(None, torch.device(device), True, runner)
+
+    def __call__(self, points, valid, ring) -> pipeline.ScanFeatures:
+        """(B, P, 3), (B, P), (B, P) -> ``ScanFeatures`` with a leading
+        (B,), which later calls do not overwrite."""
+        scans = self._on(points, valid, ring)
+        if not self.captured:
+            return pipeline.process_scans(*scans, self.cfg)
+        scans = self._static("scans", scans)
+        out = self.rt.seg(("frontend",),
+                          partial(pipeline.process_scans, cfg=self.cfg),
+                          *scans)
+        self.rt.flush()
+        return map_tree(lambda x: x.clone(), out)

@@ -42,13 +42,13 @@ _F = ctypes.c_float
 # C signature of every entry point: (argtypes), each returning an int error.
 SIGNATURES = {
     # seed, conn_h, conn_v, parent, labels, ring_min, ring_max, rmax_root,
-    # n, h, stream
-    "ccl_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # rng, col, ground, count, label, n, h, sections, halfwin, edge_trips,
-    # edge_sharp, surf_trips, edge_thr, surf_thr, col_gap, range_jump,
-    # parallel_frac, stream
-    "picks_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                     _I, _F, _F, _P),
+    # b (scans), n, h, stream
+    "ccl_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # rng, col, ground, count, label, b (scans), n, h, sections, halfwin,
+    # edge_trips, edge_sharp, surf_trips, edge_thr, surf_thr, col_gap,
+    # range_jump, parallel_frac, stream
+    "picks_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                     _F, _I, _F, _F, _P),
     # q, q_valid, r, r_valid, chunk_lo, chunk_hi (scratch), d_out, i_out
     # (int64), visited, q_n, r_n, k, gate_sq, use_gate, stream
     "knn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,

@@ -9,6 +9,10 @@ kernel (``csrc/ccl.cu``) and the plain PyTorch version below:
   * ``ring_min`` = ``labels // H`` (non-seeds: N);
   * ``ring_max`` (N, H) int32: the component's maximum ring (non-seeds: -1).
 
+A batch of scans, (B, N, H), is labelled scan by scan in one call (the
+kernel's three launches, or one plain sweep loop): a label is the minimum
+flat index within its scan's (N, H) image, and no component crosses a scan.
+
 Components are 4-connected under ``conn_h`` (cell (r, c) to (r, (c+1) % H),
 column wrap included) and ``conn_v`` (cell (r, c) to (r+1, c)), gated by the
 seed mask at both ends.
@@ -18,7 +22,10 @@ min-scans swept to a fixpoint, at most ``max_iters`` sweeps, then one
 pointer-jump compression, with the ring extrema from segment reductions.
 The CUDA kernel is a union-find, which always reaches the fixpoint; the two
 agree wherever the sweeps converge within the cap (<= 6 sweeps on real
-scans; the cap only stops adversarial snake-shaped components).
+scans; the cap only stops adversarial snake-shaped components).  A batch
+sweeps until every scan is at its fixpoint or the cap is hit, which gives
+each scan what it gets alone: a sweep at a scan's fixpoint changes nothing
+(the JAX package's vmap of its while_loop runs the same way).
 """
 
 from __future__ import annotations
@@ -63,9 +70,14 @@ def _seg_min_scan(labels: torch.Tensor, boundary: torch.Tensor, dim: int,
 
 
 def label_propagation_plain(seed_mask, conn_h, conn_v, max_iters: int):
-    """Plain PyTorch version.  Returns (labels, ring_min, ring_max, sweeps),
-    ``sweeps`` being the number of sweeps run (a Python int)."""
-    n, h = seed_mask.shape
+    """Plain PyTorch version, on (N, H) masks or a batch (B, N, H).
+    Returns (labels, ring_min, ring_max, sweeps), ``sweeps`` being the
+    number of sweeps run (a Python int; a batch's largest)."""
+    shape = seed_mask.shape
+    n, h = shape[-2:]
+    seed_mask, conn_h, conn_v = (t.reshape(-1, *t.shape[-2:])
+                                 for t in (seed_mask, conn_h, conn_v))
+    b = seed_mask.shape[0]
     n_cells = n * h
     dev = seed_mask.device
     big = n_cells
@@ -73,23 +85,23 @@ def label_propagation_plain(seed_mask, conn_h, conn_v, max_iters: int):
     labels = torch.where(seed_mask, flat_ids.reshape(n, h),
                          torch.full((n, h), big, dtype=torch.int32,
                                     device=dev))
-    conn_h = conn_h & seed_mask & torch.roll(seed_mask, -1, 1)
-    conn_v = conn_v & seed_mask[:-1] & seed_mask[1:]
-    rbf = ~torch.roll(conn_h, 1, 1)
+    conn_h = conn_h & seed_mask & torch.roll(seed_mask, -1, -1)
+    conn_v = conn_v & seed_mask[:, :-1] & seed_mask[:, 1:]
+    rbf = ~torch.roll(conn_h, 1, -1)
     rbr = ~conn_h
-    rbf2 = torch.cat([rbf, rbf], dim=1)
-    rbr2 = torch.cat([rbr, rbr], dim=1)
-    ones = torch.ones((1, h), dtype=torch.bool, device=dev)
-    cbf = torch.cat([ones, ~conn_v], dim=0)
-    cbr = torch.cat([~conn_v, ones], dim=0)
+    rbf2 = torch.cat([rbf, rbf], dim=-1)
+    rbr2 = torch.cat([rbr, rbr], dim=-1)
+    ones = torch.ones((b, 1, h), dtype=torch.bool, device=dev)
+    cbf = torch.cat([ones, ~conn_v], dim=-2)
+    cbr = torch.cat([~conn_v, ones], dim=-2)
 
     def sweep(lab):
-        lab2 = torch.cat([lab, lab], dim=1)
-        fwd = _seg_min_scan(lab2, rbf2, 1, False)[:, h:]
-        bwd = _seg_min_scan(lab2, rbr2, 1, True)[:, :h]
+        lab2 = torch.cat([lab, lab], dim=-1)
+        fwd = _seg_min_scan(lab2, rbf2, -1, False)[..., h:]
+        bwd = _seg_min_scan(lab2, rbr2, -1, True)[..., :h]
         lab = torch.minimum(fwd, bwd)
-        down = _seg_min_scan(lab, cbf, 0, False)
-        up = _seg_min_scan(lab, cbr, 0, True)
+        down = _seg_min_scan(lab, cbf, -2, False)
+        up = _seg_min_scan(lab, cbr, -2, True)
         return torch.minimum(down, up)
 
     # Same loop as the JAX while_loop: a first sweep, then sweep while the
@@ -101,59 +113,63 @@ def label_propagation_plain(seed_mask, conn_h, conn_v, max_iters: int):
         changed = bool(torch.any(new != labels))
         labels, sweeps = new, sweeps + 1
 
-    tail = torch.full((1,), big, dtype=torch.int32, device=dev)
-    flat = torch.cat([labels.reshape(-1), tail])
-    flat = flat[flat[:n_cells].long()]
-    flat = torch.cat([flat, tail])[flat.long()]
-    labels = flat[:n_cells]
-
-    # Ring extrema over each label class (the JAX XLA path's segment
-    # reductions), read back per cell.
-    seeds = seed_mask.reshape(-1)
-    ring_of = torch.div(flat_ids, h, rounding_mode="floor")
+    # Pointer jumps and the ring extrema over each label class (the JAX XLA
+    # path's segment reductions) on each scan's (N*H + 1) cells, read back
+    # per cell.
+    tail = torch.full((b, 1), big, dtype=torch.int32, device=dev)
+    flat = torch.cat([labels.reshape(b, -1), tail], dim=1)
+    flat = torch.gather(flat, 1, flat[:, :n_cells].long())
+    flat = torch.gather(torch.cat([flat, tail], dim=1), 1, flat.long())
+    labels = flat[:, :n_cells]
+    seeds = seed_mask.reshape(b, -1)
+    ring_of = torch.div(flat_ids, h, rounding_mode="floor").expand(b, -1)
     idx = labels.long()
-    rmin = torch.full((n_cells + 1,), n, dtype=torch.int32, device=dev)
-    rmin.scatter_reduce_(0, idx, torch.where(seeds, ring_of,
+    rmin = torch.full((b, n_cells + 1), n, dtype=torch.int32, device=dev)
+    rmin.scatter_reduce_(1, idx, torch.where(seeds, ring_of,
                                              torch.full_like(ring_of, n)),
                          "amin", include_self=True)
-    rmax = torch.full((n_cells + 1,), -1, dtype=torch.int32, device=dev)
-    rmax.scatter_reduce_(0, idx, torch.where(seeds, ring_of,
+    rmax = torch.full((b, n_cells + 1), -1, dtype=torch.int32, device=dev)
+    rmax.scatter_reduce_(1, idx, torch.where(seeds, ring_of,
                                              torch.full_like(ring_of, -1)),
                          "amax", include_self=True)
-    return (labels.reshape(n, h), rmin[idx].reshape(n, h),
-            rmax[idx].reshape(n, h), sweeps)
+    return (labels.reshape(shape), torch.gather(rmin, 1, idx).reshape(shape),
+            torch.gather(rmax, 1, idx).reshape(shape), sweeps)
 
 
 def label_propagation(seed_mask: torch.Tensor, conn_h: torch.Tensor,
                       conn_v: torch.Tensor, max_iters: int):
-    """Connected components + ring extrema: (labels, ring_min, ring_max).
+    """Connected components + ring extrema: (labels, ring_min, ring_max),
+    of (N, H) masks or of a batch of scans (B, N, H) in one call.
 
     CPU tensors take the plain version; CUDA tensors launch ``csrc/ccl.cu``
-    (or raise)."""
+    once for the whole batch (or raise)."""
     if seed_mask.device.type == "cpu":
         return label_propagation_plain(seed_mask, conn_h, conn_v,
                                        max_iters)[:3]
-    n, h = seed_mask.shape
+    _native.require(seed_mask.dim() in (2, 3), "ccl: (N, H) or (B, N, H)")
+    *lead, n, h = seed_mask.shape
+    b = lead[0] if lead else 1
     _native.require(seed_mask.dtype == torch.bool and conn_h.dtype
                     == torch.bool and conn_v.dtype == torch.bool,
                     "ccl: masks must be bool")
-    _native.require(tuple(conn_h.shape) == (n, h)
-                    and tuple(conn_v.shape) == (n - 1, h),
-                    "ccl: conn_h must be (N, H) and conn_v (N-1, H)")
+    _native.require(tuple(conn_h.shape) == (*lead, n, h)
+                    and tuple(conn_v.shape) == (*lead, n - 1, h),
+                    "ccl: conn_h must be (..., N, H) and conn_v (..., N-1, H)")
+    _native.require(b <= 65535, "ccl: at most 65535 scans a launch")
     seed_mask, conn_h, conn_v = (t.contiguous() for t in
                                  (seed_mask, conn_h, conn_v))
     _native.require_cuda(seed_mask, conn_h, conn_v)
     lib = _native.library()
     opts = dict(dtype=torch.int32, device=seed_mask.device)
-    parent = torch.empty(n * h, **opts)
-    rmax_root = torch.empty(n * h, **opts)
-    labels = torch.empty((n, h), **opts)
-    ring_min = torch.empty((n, h), **opts)
-    ring_max = torch.empty((n, h), **opts)
+    parent = torch.empty(b * n * h, **opts)
+    rmax_root = torch.empty(b * n * h, **opts)
+    labels = torch.empty(seed_mask.shape, **opts)
+    ring_min = torch.empty(seed_mask.shape, **opts)
+    ring_max = torch.empty(seed_mask.shape, **opts)
     err = lib.ccl_launch(
         seed_mask.data_ptr(), conn_h.data_ptr(), conn_v.data_ptr(),
         parent.data_ptr(), labels.data_ptr(), ring_min.data_ptr(),
-        ring_max.data_ptr(), rmax_root.data_ptr(), n, h,
+        ring_max.data_ptr(), rmax_root.data_ptr(), b, n, h,
         _native.stream_handle(seed_mask))
     _native.check(err, "ccl")
     KERNEL.launches += 1

@@ -6,6 +6,11 @@ Each ring's segmented cells are compacted to the front in column order (the
 reference's segmented-cloud layout); kernel K2 (``features_cuda``) turns the
 compacted channels into the pick-label grid; the label grid becomes the five
 fixed-capacity clouds.
+
+A batch of scans (range images (B, N, H)) runs in one call, every step per
+scan: the rings compact within their scan, K2 takes the batch in one launch,
+and every cloud fills from its own scan's cells; every field of the
+``ScanFeatures`` gains a leading (B,), as the JAX package's vmap gives.
 """
 
 from __future__ import annotations
@@ -61,17 +66,18 @@ class FeatureDebug(NamedTuple):
 
 def _compaction_perm(segmented: torch.Tensor):
     """Per-ring stable partition: segmented cells first (column order), the
-    rest after.  Returns (perm (N, H) int64, count (N,) int32)."""
-    n, h = segmented.shape
+    rest after.  Returns (perm (..., N, H) int64, count (..., N) int32)."""
+    h = segmented.shape[-1]
     dev = segmented.device
-    cols = torch.arange(h, dtype=torch.int64, device=dev).expand(n, h)
-    count = torch.sum(segmented, dim=1, dtype=torch.int32)
-    pos_seg = torch.cumsum(segmented.to(torch.int64), 1) - 1
-    pos_rest = torch.cumsum((~segmented).to(torch.int64), 1) - 1 \
-        + count[:, None]
+    cols = torch.arange(h, dtype=torch.int64, device=dev).expand(
+        segmented.shape)
+    count = torch.sum(segmented, dim=-1, dtype=torch.int32)
+    pos_seg = torch.cumsum(segmented.to(torch.int64), -1) - 1
+    pos_rest = torch.cumsum((~segmented).to(torch.int64), -1) - 1 \
+        + count[..., None]
     target = torch.where(segmented, pos_seg, pos_rest)
-    perm = torch.empty((n, h), dtype=torch.int64, device=dev)
-    perm.scatter_(1, target, cols)
+    perm = torch.empty(segmented.shape, dtype=torch.int64, device=dev)
+    perm.scatter_(-1, target, cols)
     return perm, count
 
 
@@ -81,16 +87,16 @@ def _compact_rings(img: RangeImage, seg: Segmentation, xyz_deskewed=None):
     coordinates are ``xyz_deskewed`` when given; the ranges stay the
     projected ones."""
     perm, count = _compaction_perm(seg.segmented)
-    n, h = perm.shape
+    h = perm.shape[-1]
     cols = torch.arange(h, dtype=torch.float32,
-                        device=perm.device).expand(n, h)
+                        device=perm.device).expand(perm.shape)
     stacked = torch.cat([
         img.xyz if xyz_deskewed is None else xyz_deskewed,
         img.rng[..., None], cols[..., None],
         seg.seg_ground_flag.to(torch.float32)[..., None],
         img.rel_time[..., None],
         seg.segmented.to(torch.float32)[..., None]], dim=-1)
-    g = torch.gather(stacked, 1, perm[..., None].expand(n, h, 8))
+    g = torch.gather(stacked, -2, perm[..., None].expand(*perm.shape, 8))
     return {"xyz": g[..., 0:3], "rng": g[..., 3],
             "col": g[..., 4].to(torch.int32), "ground": g[..., 5] > 0.5,
             "rel": g[..., 6]}, count
@@ -108,10 +114,10 @@ def extract_features(img: RangeImage, seg: Segmentation, sensor: SensorConfig,
     ones the clouds were built from (kernel K2's on a CUDA tensor), the
     curvature and occlusion planes come from the plain version's first
     half on the same device.  Returns (features, debug)."""
-    n, h = img.rng.shape
+    h = img.rng.shape[-1]
     c, count = _compact_rings(img, seg, xyz_deskewed)
-    idx = torch.arange(h, device=count.device).expand(n, h)
-    in_ring = idx < count[:, None]
+    idx = torch.arange(h, device=count.device)
+    in_ring = idx < count[..., None]
     rng = torch.where(in_ring, c["rng"], torch.zeros_like(c["rng"]))
     label = pick_labels(rng, c["col"], c["ground"], count, cfg)
     feats = _build_clouds(img, seg, c, in_ring, label, cfg, xyz_deskewed)
@@ -125,29 +131,38 @@ def extract_features(img: RangeImage, seg: Segmentation, sensor: SensorConfig,
 
 
 def _compact_cloud(mask, cap: int, xyz, ring, rel):
-    """Index-order compaction of a dense mask into fixed-cap arrays; returns
-    (cloud, number of points dropped beyond ``cap``)."""
-    mflat = mask.reshape(-1)
-    slot = torch.cumsum(mflat.to(torch.int64), 0) - 1
+    """Index-order compaction of a dense (..., N, H) mask into fixed-cap
+    arrays, each scan of a batch into its own; returns (cloud, number of
+    points dropped beyond ``cap``)."""
+    lead = mask.shape[:-2]
+    mflat = mask.reshape(-1, mask.shape[-2] * mask.shape[-1])
+    b = mflat.shape[0]
+    slot = torch.cumsum(mflat.to(torch.int64), -1) - 1
     tgt = torch.where(mflat & (slot < cap), slot,
                       torch.full_like(slot, cap))
-    vals = torch.cat([xyz.reshape(-1, 3), ring.reshape(-1, 1),
-                      rel.reshape(-1, 1),
-                      mflat.to(torch.float32).reshape(-1, 1)], dim=1)
-    # Every dropped row lands in the spare row ``cap``, which is discarded.
-    out = torch.zeros((cap + 1, 6), dtype=vals.dtype, device=vals.device)
-    out = out.index_copy_(0, tgt, vals)[:cap]
-    out_ok = out[:, 5] > 0.5
+    # Scan b's rows go to its own cap + 1 slots.
+    tgt = tgt + torch.arange(b, device=tgt.device)[:, None] * (cap + 1)
+    vals = torch.cat([xyz.reshape(-1, 3), ring.expand(mask.shape).reshape(
+        -1, 1), rel.reshape(-1, 1), mflat.to(torch.float32).reshape(-1, 1)],
+        dim=1)
+    # Every dropped row lands in its scan's spare row ``cap``, discarded.
+    out = torch.zeros((b * (cap + 1), 6), dtype=vals.dtype,
+                      device=vals.device)
+    out = out.index_copy_(0, tgt.reshape(-1), vals).reshape(
+        *lead, cap + 1, 6)[..., :cap, :]
+    out_ok = out[..., 5] > 0.5
     z = out_ok.to(torch.float32)
-    n_dropped = torch.clamp(torch.sum(mflat, dtype=torch.int32) - cap, min=0)
-    return FeatureCloud(xyz=out[:, :3] * z[:, None], ring=out[:, 3] * z,
-                        rel_time=out[:, 4] * z, valid=out_ok), n_dropped
+    n_dropped = torch.clamp(torch.sum(mflat, dim=-1, dtype=torch.int32)
+                            - cap, min=0).reshape(lead)
+    return FeatureCloud(xyz=out[..., :3] * z[..., None],
+                        ring=out[..., 3] * z, rel_time=out[..., 4] * z,
+                        valid=out_ok), n_dropped
 
 
 def _build_clouds(img, seg, c, in_ring, label, cfg: FeatureConfig,
                   xyz_deskewed=None):
     """Label grid -> the five fixed-cap feature clouds."""
-    n, h = img.rng.shape
+    n, h = img.rng.shape[-2:]
     ring_f = torch.arange(n, dtype=torch.float32,
                           device=label.device)[:, None].expand(n, h)
 
@@ -162,26 +177,33 @@ def _build_clouds(img, seg, c, in_ring, label, cfg: FeatureConfig,
     if cfg.less_flat_method == "run":
         # First-of-run adjacent-cell dedup along each azimuth-ordered ring.
         cell = voxel_cells(c["xyz"], cfg.less_flat_leaf)
-        same = torch.all(cell == torch.roll(cell, 1, 1), dim=-1)
-        prev_lf = torch.roll(lf_mask, 1, 1)
+        same = torch.all(cell == torch.roll(cell, 1, -2), dim=-1)
+        prev_lf = torch.roll(lf_mask, 1, -1)
         keep = lf_mask & ~(same & prev_lf)
-        keep[:, 0] = lf_mask[:, 0]
+        keep[..., 0] = lf_mask[..., 0]
         less_flat, lf_drop = _compact_cloud(keep, cfg.max_less_flat, c["xyz"],
                                             ring_f, c["rel"])
     else:
-        payload = torch.stack([ring_f, c["rel"]], dim=-1).reshape(-1, 2)
-        pts, pay, v, lf_drop = voxel_downsample_with_payload(
-            c["xyz"].reshape(-1, 3), payload, lf_mask.reshape(-1),
-            cfg.less_flat_leaf, cfg.max_less_flat, return_overflow=True)
-        less_flat = FeatureCloud(xyz=pts, ring=pay[:, 0],
-                                 rel_time=pay[:, 1], valid=v)
+        # The voxel grid thins one cloud a call: a batch's scans in turn.
+        lead = lf_mask.shape[:-2]
+        payload = torch.stack([ring_f.expand(lf_mask.shape), c["rel"]],
+                              dim=-1).reshape(-1, n * h, 2)
+        outs = [voxel_downsample_with_payload(
+            xyz, pay, m, cfg.less_flat_leaf, cfg.max_less_flat,
+            return_overflow=True) for xyz, pay, m in zip(
+                c["xyz"].reshape(-1, n * h, 3), payload,
+                lf_mask.reshape(-1, n * h))]
+        pts, pay, v, lf_drop = (torch.stack(x).reshape((*lead, *x[0].shape))
+                                for x in zip(*outs))
+        less_flat = FeatureCloud(xyz=pts, ring=pay[..., 0],
+                                 rel_time=pay[..., 1], valid=v)
 
     outlier, out_drop = _compact_cloud(
         seg.outlier, cfg.max_outlier,
         img.xyz if xyz_deskewed is None else xyz_deskewed, ring_f,
         img.rel_time)
     overflow = torch.stack([sharp_drop, ls_drop, flat_drop, lf_drop,
-                            out_drop]).to(torch.int32)
+                            out_drop], dim=-1).to(torch.int32)
     return ScanFeatures(sharp=sharp, less_sharp=less_sharp, flat=flat,
                         less_flat=less_flat, outlier=outlier,
                         overflow=overflow)

@@ -21,7 +21,8 @@ ring's count), original columns, ground flags, per-ring counts.  Output: the
 
 The plain version below is the JAX package's XLA trip loop
 (``legoloam_tpu/ops/features.py:177-283``), all sections of all rings in
-parallel per trip.
+parallel per trip.  Rings are independent, so a batch of scans (B, N, H)
+is B*N rings: one kernel launch, or the plain version over B*N rows.
 """
 
 from __future__ import annotations
@@ -92,6 +93,10 @@ def curvature_marks(rng: torch.Tensor, col: torch.Tensor,
 def pick_labels_plain(rng: torch.Tensor, col: torch.Tensor,
                       ground: torch.Tensor, count: torch.Tensor,
                       cfg: FeatureConfig) -> torch.Tensor:
+    """Plain PyTorch version, on (N, H) grids or a batch (B, N, H)."""
+    if rng.dim() == 3:
+        rows = (t.flatten(0, 1) for t in (rng, col, ground, count))
+        return pick_labels_plain(*rows, cfg).reshape(rng.shape)
     curvature, curv_ok, picked = curvature_marks(rng, col, count, cfg)
     n, h = rng.shape
     dev = rng.device
@@ -159,29 +164,34 @@ def pick_labels(rng: torch.Tensor, col: torch.Tensor, ground: torch.Tensor,
                 count: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     """(N, H) int32 feature labels from the compacted per-ring channels
     (counts in [0, H]; any 1 <= sections <= 32, halfwin <= 255, and any H
-    whose ring fits in a block's shared memory, ~14K columns).
+    whose ring fits in a block's shared memory, ~14K columns), or
+    (B, N, H) labels of a batch of scans ((B, N) counts) in one call.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/picks.cu`` (or raise)."""
+    ``csrc/picks.cu`` once for the whole batch (or raise)."""
     if rng.device.type == "cpu":
         return pick_labels_plain(rng, col, ground, count, cfg)
-    n, h = rng.shape
+    _native.require(rng.dim() in (2, 3), "picks: (N, H) or (B, N, H)")
+    *lead, n, h = rng.shape
+    b = lead[0] if lead else 1
     _native.require(rng.dtype == torch.float32 and col.dtype == torch.int32
                     and ground.dtype == torch.bool
                     and count.dtype == torch.int32,
                     "picks: rng f32, col i32, ground bool, count i32")
-    _native.require(col.shape == (n, h) and ground.shape == (n, h)
-                    and count.shape == (n,), "picks: (N, H) grids, (N,) count")
+    _native.require(col.shape == rng.shape and ground.shape == rng.shape
+                    and count.shape == (*lead, n),
+                    "picks: (..., N, H) grids, (..., N) counts")
+    _native.require(b <= 65535, "picks: at most 65535 scans a launch")
     _native.require(1 <= cfg.sections <= 32, "picks: 1 to 32 sections")
     _native.require(0 <= cfg.curvature_halfwin <= 255,
                     "picks: curvature_halfwin at most 255")
     rng, col, ground, count = (t.contiguous() for t in
                                (rng, col, ground, count))
     _native.require_cuda(rng, col, ground, count)
-    label = torch.empty((n, h), dtype=torch.int32, device=rng.device)
+    label = torch.empty(rng.shape, dtype=torch.int32, device=rng.device)
     err = _native.library().picks_launch(
         rng.data_ptr(), col.data_ptr(), ground.data_ptr(), count.data_ptr(),
-        label.data_ptr(), n, h, cfg.sections, cfg.curvature_halfwin,
+        label.data_ptr(), b, n, h, cfg.sections, cfg.curvature_halfwin,
         cfg.edge_less_per_section, cfg.edge_per_section,
         cfg.surf_per_section, cfg.edge_threshold, cfg.surf_threshold,
         cfg.occlusion_col_gap, cfg.occlusion_range_jump,
