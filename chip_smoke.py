@@ -48,6 +48,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
      call starts the drivers' kept OdometryGraph and captures, every later
      call replays; against the eager body (graph=False): poses bitwise, 0
      host reads and one replay in each later call, scans/s of each;
+  4f. [tracing] the tracer (utils/profiling.py) on OdometryGraph at
+     VLP-16 and StepGraph at VLS-128, each in a child process: rounds of
+     the step with tracing off and with the tracer alone
+     (``profiling.tracing()``) in turns, then rounds under torch.profiler
+     (which turns the tracer on) and off and with the tracer after it;
+     scans/s of each and the tracer's figures (launch, step-host and gap
+     ms a scan, graph nodes a scan, the chains' device ms, the submap
+     read's wait, the LM's useful share); gates: the tracer's steps and
+     replays equal the program's, each chain's device span read, none
+     recorded when off;
   4e. [bench] ``python -m legoloam_tpu_torch.bench`` with no flags (grow
      1024, ring world, DEFAULT) in a child process alone on the card: its
      eight windows (with the graph captures inside each), the ledger and
@@ -233,7 +243,7 @@ from legoloam_tpu_torch.parallel import frontend_dp, mapping_dist
 from legoloam_tpu_torch.parallel import mesh as mesh_mod
 from legoloam_tpu_torch.parallel import pipeline_dist, posegraph_dist
 from legoloam_tpu_torch.utils import (checkpoint, export, io, memory,
-                                      metrics, synthetic)
+                                      metrics, profiling, synthetic)
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # outside the tensor cores.
@@ -1226,8 +1236,8 @@ def cli_launches(out_dir):
 
 
 def stage_seconds(out_dir, stage):
-    """A stage's total seconds from the CLI's profile.txt (the card
-    synchronised at the stage's end); None when it did not run."""
+    """A stage's total seconds from the CLI's profile.txt (the host's time
+    in its span); None when it did not run."""
     text = open(os.path.join(out_dir, "profile.txt")).read()
     m = re.search(rf"^{stage}\s+([0-9.]+)s total", text, re.M)
     return float(m.group(1)) if m else None
@@ -2887,6 +2897,187 @@ LEDGER_RE = re.compile(r"\[grow\] trajectory: (\S+) m, abs err mean (\S+) "
 LAUNCHES_AT = "[bench] kernel launches in the timed run: "
 
 
+# [tracing]: a mode's scans (off and the tracer alone; under the profiler
+# the benchmark's traced count), the rounds, and the odometry's pre-roll
+# (the replayed VLP-16 step runs slow for 0-30 s after its captures).
+# Each program runs in a child process: a torch.profiler session leaves
+# CUPTI's cost on every later graph launch of its process (the odometry's
+# replay 0.035 -> 5.5 ms after one), so the clean modes run first.
+TRACE_CLEAN = ("off", "tracer")
+TRACE_AFTER = ("profiler", "off after", "tracer after")
+TRACE_PROGRAMS = {
+    "odometry vlp16": {"scans": 480, "profiled": 96, "circle": 698,
+                       "warm": 3, "preroll_s": 20.0},
+    "slam vls128": {"scans": 36, "profiled": 12, "circle": 0, "warm": 60,
+                    "preroll_s": 0.0}}
+TRACE_ROUNDS = 3
+TRACE_TIMEOUT_S = 600
+
+
+# The benchmark's readers of the tracer, keyed by the figures they give.
+TRACE_READERS = {"launch_ms": "launch_ms_per_scan",
+                 "step_host_ms": "step_host_ms_per_scan",
+                 "nodes": "graph_nodes_per_scan",
+                 "gap_ms": "host_gap_ms_per_scan",
+                 "front_ms": "front_chain_ms",
+                 "mapping_ms": "mapping_chain_ms",
+                 "read_wait_ms": "read_wait_ms_per_mapping_scan",
+                 "lm_share": "lm_useful_iter_share"}
+
+
+def trace_figures(s):
+    """The benchmark's per-layer figures of the tracer, from its readers
+    (``benchmark/metrics``), the replay spans' median and largest from the
+    summary ``s``, and the device's time a scan (its chains' spans and
+    the gaps between them)."""
+    from pathlib import Path
+
+    from benchmark import harness
+
+    bench_dir = Path(REPO_DIR) / "benchmark"
+    launches = [(sp.end_ns - sp.start_ns) * 1e-6 for sp in s["raw"]
+                if sp.name.startswith("slam.replay ")]
+    spans = sum(m for c in s["chains"].values() for m in c["device_ms"])
+    fig = {"launch_median_ms": float(np.median(launches)) if launches
+           else None,
+           "launch_max_ms": max(launches) if launches else None,
+           "device_ms": (spans + s["gap_ms"]) / max(s["scans"], 1)}
+    fig.update({name: harness.load_reader(bench_dir, metric)(None)
+                for name, metric in TRACE_READERS.items()})
+    return fig
+
+
+def tracing_phase(card):
+    """[tracing]: ``tracing_run`` of each program of TRACE_PROGRAMS in a
+    child process of its own, one after the other on the card; their lines
+    go to this script's output and log."""
+    for label in TRACE_PROGRAMS:
+        r = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.tracing_run({label!r}, {card!r})"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            timeout=TRACE_TIMEOUT_S)
+        if r.returncode != 0:
+            fail(f"tracing: {label}: exit {r.returncode}")
+
+
+def tracing_run(label, card, rounds=TRACE_ROUNDS):
+    """One program of [tracing], in a process that has run no profiler:
+    the tracer's cost (off against the tracer alone, ``rounds`` turns)
+    before any profiler session, then what CUPTI does to its figures (the
+    profiler with the tracer on, then off and the tracer alone after it,
+    ``rounds`` turns).  The program is OdometryGraph at VLP-16 or StepGraph
+    at VLS-128, stepped on over ray-cast ring-world scans (odometry: one
+    lap of ``circle`` scans, cycled); the card is synchronised at each
+    mode's ends.  Gates: the tracer's steps and replays equal the
+    program's, every chain's device span is read, nothing is recorded
+    while it is off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    p = TRACE_PROGRAMS[label]
+    cfg = DEFAULT if label.startswith("odometry") else for_sensor("vls128")
+    n = p["circle"] or p["warm"] + rounds * (
+        (len(TRACE_CLEAN) + len(TRACE_AFTER) - 1) * p["scans"]
+        + p["profiled"])
+    t0 = time.perf_counter()
+    rate = 2 * math.pi / n if p["circle"] else 0.009
+    poses = synthetic.circle_trajectory(n + 1, radius=30.0,
+                                        angular_rate=rate, device=dev)
+    scene = synthetic.loop_scene()
+    scans = [synthetic.raycast_scan(
+        scene, Pose(poses.R[k], poses.t[k]), cfg.sensor,
+        next_pose=Pose(poses.R[k + 1], poses.t[k + 1]), motion=True)
+        for k in range(n)]
+    torch.cuda.synchronize()
+    cast_s = time.perf_counter() - t0
+    if p["circle"]:
+        prog = step_graph.OdometryGraph(
+            odometry.init_state(cfg.odom, cfg.feat, dev), cfg)
+
+        def step(k):
+            prog.step(*scans[k % n])
+    else:
+        prog = step_graph.StepGraph(pipeline.init_slam_state(cfg, dev), cfg)
+
+        def step(k):
+            prog.step(*scans[k], k * cfg.sensor.scan_period,
+                      run_mapping=k % cfg.mapping_every == 0,
+                      bootstrap=k == 1)
+    profiling.reset()
+    k = 0
+    t0 = time.perf_counter()
+    while k < p["warm"] or time.perf_counter() - t0 < p["preroll_s"]:
+        step(k)
+        k += 1
+    torch.cuda.synchronize()
+    if profiling.summary()["steps"]:
+        fail(f"tracing: {label}: steps traced with tracing off")
+    log(f"[tracing] {label}: {n} scans cast in {cast_s:.1f} s; {k} scans "
+        f"of warm-up and pre-roll in {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    res = {}
+    for modes in (TRACE_CLEAN, TRACE_AFTER):
+        for r in range(rounds):
+            for mode in modes:
+                m = p["profiled"] if mode == "profiler" else p["scans"]
+                profiling.reset()
+                replays = prog.rt.replays
+                prof = None
+                if mode == "profiler":
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
+                ctx = profiling.tracing() if mode.startswith("tracer") \
+                    else contextlib.nullcontext()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with ctx:
+                    for _ in range(m):
+                        step(k)
+                        k += 1
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t1
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    prof = None
+                s = profiling.summary()
+                replays = prog.rt.replays - replays
+                want = 0 if mode.startswith("off") else m
+                if s["steps"] != want or s["replays"] != (
+                        replays if want else 0):
+                    fail(f"tracing: {label} {mode}: {s['steps']} steps and "
+                         f"{s['replays']} replays traced, {m} scans and "
+                         f"{replays} replays run")
+                if want and any(len(c["device_ms"]) != c["replays"]
+                                for c in s["chains"].values()):
+                    fail(f"tracing: {label} {mode}: a device span unread")
+                fig = trace_figures(s) if want else {}
+                res.setdefault(mode, []).append((m / sec, fig))
+                log(f"[tracing] {label} round {r} {mode}: {m} scans, "
+                    f"{m / sec:.2f} scans/s" + "".join(
+                        f", {name} {v:.4f}" for name, v in fig.items()
+                        if v is not None))
+                if want and r == rounds - 1:
+                    for line in profiling.report(s):
+                        log(f"[tracing] {label} {mode}: {line}")
+    med = {mode: float(np.median([x for x, _ in v]))
+           for mode, v in res.items()}
+    fig = {mode: {name: float(np.median([f[name] for _, f in v]))
+                  for name in v[0][1] if v[0][1][name] is not None}
+           for mode, v in res.items() if v[0][1]}
+    log(f"[tracing] {label}: median scans/s off {med['off']:.2f}, tracer "
+        f"{med['tracer']:.2f} ({100 * (med['tracer'] / med['off'] - 1):+.2f}"
+        f"%), profiler {med['profiler']:.2f}, after it off "
+        f"{med['off after']:.2f} and tracer {med['tracer after']:.2f} "
+        f"[{card}]")
+    for name in fig["tracer"]:
+        log(f"[tracing] {label}: {name}: tracer alone "
+            f"{fig['tracer'][name]:.4f}, under the profiler "
+            f"{fig['profiler'][name]:.4f}, tracer after it "
+            f"{fig['tracer after'][name]:.4f}")
+
+
 def start_bench(flags, base):
     """``python -m legoloam_tpu_torch.bench <flags>`` as a child process
     from the repo root; its stdout to ``base``.out, stderr to .err."""
@@ -3190,6 +3381,7 @@ def main() -> int:
     fused_g, rate_g, _ = graph_phase(scans, cfg, dev, card, fused, n_kf)
     block_launches = block_graph_phase(scans, cfg, dev, card, fused_g, rate_g)
     early = {"odometry graph": odometry_graph_phase(scans, cfg, dev, card)}
+    tracing_phase(card)
     # The bench's child processes, alone on the card.
     with tempfile.TemporaryDirectory() as work:
         bench_phase(work, card, early)

@@ -19,8 +19,11 @@ Outputs (the reference's /tmp PCD dumps and more, mapOptmization.cpp:730-755):
     out/global_map.pcd         voxel-downsampled world map
     out/checkpoint.npz         full resumable SLAM state (the JAX package's
                                keys: either package resumes it)
-    out/profile.txt            per-stage wall-clock summary and the run's
-                               launches of each CUDA kernel
+    out/profile.txt            the tracer's summary of the run (per graph
+                               chain its device and launch ms, nodes and
+                               gaps; read waits; the LM's iterations; every
+                               span's time) and the run's launches of each
+                               CUDA kernel
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import dataclasses
 import glob
 import os
 import sys
+import time
 
 NAME = "legoloam_tpu_torch"
 # A rank of a --mesh run that waits longer than this in a collective fails
@@ -159,14 +163,9 @@ def _mesh_rank(mesh, args):
 def run(args, dev, mesh=None):
     """The replay loop on ``dev``; with ``mesh``, this rank's part of the
     distributed run (every rank calls it; rank 0 writes)."""
-    import torch
-
     from .config import DEFAULT, SENSORS
-    from .models import pipeline, step_graph
-    from .ops import _native, deskew
-    from .ops.se3 import Pose
-    from .utils import checkpoint, export, io as lio, profiling, synthetic
-    from .utils.debugdump import DebugDumper
+    from .ops import _native
+    from .utils import profiling
 
     lead = mesh is None or mesh.rank == 0
     _native.reset_counts()      # profile.txt reports this run's launches
@@ -179,7 +178,22 @@ def run(args, dev, mesh=None):
 
     if lead:
         os.makedirs(args.out, exist_ok=True)
-    timer = profiling.StageTimer(dev)
+    # The whole run is traced (utils/profiling.py): spans on the host,
+    # timing events around each graph replay, read without synchronising.
+    profiling.reset()
+    with profiling.tracing() as tr:
+        return _loop(args, dev, mesh, cfg, lead, tr)
+
+
+def _loop(args, dev, mesh, cfg, lead, tr):
+    """``run``'s loop and outputs, ``tr`` the tracer."""
+    import torch
+
+    from .models import pipeline, step_graph
+    from .ops import _native, deskew
+    from .ops.se3 import Pose
+    from .utils import checkpoint, export, io as lio, profiling, synthetic
+    from .utils.debugdump import DebugDumper
 
     # --- scan source ---
     loader = None
@@ -192,7 +206,7 @@ def run(args, dev, mesh=None):
         def scan_iter():
             for k in range(n):
                 j = min(k + 1, n - 1)
-                with timer.stage("raycast"):
+                with tr.span("raycast"):
                     scan = synthetic.raycast_scan(
                         scene, Pose(poses.R[k], poses.t[k]), cfg.sensor,
                         next_pose=Pose(poses.R[j], poses.t[j]),
@@ -236,27 +250,27 @@ def run(args, dev, mesh=None):
 
     sched = pipeline.LoopScheduler(cfg)
     fused_R, fused_t, times = [], [], []
+    t_loop = time.perf_counter()
     for k, scan in enumerate(scan_iter()):
         t = k * cfg.sensor.scan_period
         integ = None
         if imu_seq is not None:
-            with timer.stage("imu"):
+            with tr.span("imu"):
                 integ = deskew.integrate_imu(imu_seq.window_for(
                     t, cfg.sensor.scan_period, device=dev))
-        with timer.stage("slam_step"):
-            # A scan to be relocalized is not mapped: at the stale belief
-            # it would enter the store as a keyframe at the wrong place,
-            # which the relocalization then matches the scan against.
-            run_mapping = not args.odometry_only \
-                and (k % cfg.mapping_every == 0) \
-                and not (k == 0 and args.relocalize)
-            step = dict(run_mapping=run_mapping, run_loop=sched.due(t),
-                        imu_integral=integ,
-                        bootstrap=(k == 1
-                                   and (args.relocalize or not args.resume)))
-            out = sg.step(*scan, t, **step)
+        # A scan to be relocalized is not mapped: at the stale belief it
+        # would enter the store as a keyframe at the wrong place, which the
+        # relocalization then matches the scan against.
+        run_mapping = not args.odometry_only \
+            and (k % cfg.mapping_every == 0) \
+            and not (k == 0 and args.relocalize)
+        step = dict(run_mapping=run_mapping, run_loop=sched.due(t),
+                    imu_integral=integ,
+                    bootstrap=(k == 1
+                               and (args.relocalize or not args.resume)))
+        out = sg.step(*scan, t, **step)
         if k == 0 and args.relocalize:
-            with timer.stage("relocalize"):
+            with tr.span("relocalize"):
                 state, rdiag = backend.relocalize(sg.state, cfg)
             sg.load(state)
             if lead:
@@ -270,18 +284,18 @@ def run(args, dev, mesh=None):
         fused_t.append(out.fused_pose.t)
         times.append(t)
         if lead and dumper.due(k):
-            with timer.stage("debug_dump"):
+            with tr.span("debug_dump"):
                 dumper.maybe_dump(k, scan, cfg, state=sg.state,
                                   diag=out.diag)
         if args.checkpoint_every and (k + 1) % args.checkpoint_every == 0:
-            with timer.stage("checkpoint"):
+            with tr.span("checkpoint"):
                 snap = backend.snapshot(sg.state, cfg)
                 if lead:
                     checkpoint.save_state(
                         os.path.join(args.out, "checkpoint.npz"), snap)
                 del snap
         if args.map_every and (k + 1) % args.map_every == 0:
-            with timer.stage("map_export"):
+            with tr.span("map_export"):
                 snap = backend.snapshot(sg.state, cfg)
                 kf_now = snap.mapping.kf if lead else None
                 del snap
@@ -327,6 +341,9 @@ def run(args, dev, mesh=None):
             del state
     if loader is not None:
         loader.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    loop_s = time.perf_counter() - t_loop
 
     # --- outputs ---
     state = backend.snapshot(sg.state, cfg)
@@ -344,11 +361,14 @@ def run(args, dev, mesh=None):
         pts, val = export.assemble_global_map(kf)
         export.write_pcd(os.path.join(args.out, "global_map.pcd"), pts, val)
     checkpoint.save_state(os.path.join(args.out, "checkpoint.npz"), state)
+    rate = len(times) / max(loop_s, 1e-9)
     with open(os.path.join(args.out, "profile.txt"), "w") as f:
-        f.write(timer.summary() + "\n" + "kernel launches: " + ", ".join(
+        f.write(f"{len(times)} scans in {loop_s:.3f} s of the loop's wall "
+                f"time: {rate:.2f} scans/s\n")
+        f.write("\n".join(profiling.report(profiling.summary())) + "\n")
+        f.write("kernel launches: " + ", ".join(
             f"{name} {k.launches}" for name, k in _native.KERNELS.items())
             + "\n")
-    rate = timer.counts["slam_step"] / max(timer.totals["slam_step"], 1e-9)
     print(f"[{NAME}] done: {len(times)} scans, {n_kf} keyframes, "
           f"{rate:.1f} scans/s -> {args.out}")
     return 0

@@ -34,7 +34,9 @@ replay, no host read).
 
 The keyframe store stays the one in-place buffer: the mapping segment
 writes a keyframe's row into it, and nothing copies it a step.  A replay
-counts the kernel launches its capture recorded (``ops/_native.py``).
+counts the kernel launches its capture recorded (``ops/_native.py``), and
+a chain keeps its name and its graph's node count for the tracer
+(``utils/profiling.py``), which a program's step consults once.
 
 On the CPU, over gloo (``parallel.pipeline_dist.MeshBackend`` is
 capturable on NCCL only) and with ``graph=False`` the same body runs
@@ -44,14 +46,16 @@ back to the eager body.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
-from functools import partial
+from functools import lru_cache, partial
 
 import torch
 
 from ..config import PipelineConfig
 from ..ops import _native
 from ..ops.segments import Eager, bind, copy_tree, leaves, map_tree
+from ..utils import profiling
 from . import pipeline
 from .pipeline import SINGLE, Backend, SlamOutput
 
@@ -60,6 +64,8 @@ from .pipeline import SINGLE, Backend, SlamOutput
 class _Chain:
     graph: torch.cuda.CUDAGraph | None = None
     launches: dict | None = None       # kernel launches a replay makes
+    name: str = ""                     # its segments' key heads, "+"-joined
+    nodes: int = 0                     # the graph's nodes (0 on the CPU)
 
 
 class StaticRunner(Eager):
@@ -80,6 +86,7 @@ class StaticRunner(Eager):
         super().__init__(read_fn)
         self.static: set = set()   # storages of the static buffers
         self.segs: dict = {}       # (key, argument pointers) -> (id, out)
+        self.heads: dict = {}      # segment id -> the head of its key
         self.chains: dict = {}     # tuple of segment ids -> _Chain
         self.prefixes: set = set()  # every prefix of a captured chain
         self.replays = 0
@@ -107,6 +114,7 @@ class StaticRunner(Eager):
             self._run_pending()
             out = self._warm(fn, args, into)
             s = self.segs[ident] = (len(self.segs), out)
+            self.heads[s[0]] = str(key[0])
             self.ran += 1
         else:
             out = s[1]
@@ -139,14 +147,28 @@ class StaticRunner(Eager):
         pending, ids, ran = self.pending, self.ids, self.ran
         self._open()
         chain = self.chains.get(ids)
+        tr = self.tracer
         if chain is not None and not ran:
-            self._replay(chain, pending)
+            if tr is None:
+                self._replay(chain, pending)
+            else:
+                tr.replay(chain.name, chain.nodes,
+                          partial(self._replay, chain, pending),
+                          self._stream())
             return
         for _, fn, args, out in pending[ran:]:
             self._run(fn, args, out)
         if chain is None:
-            self.chains[ids] = self._capture(pending)
+            name = "+".join(dict.fromkeys(self.heads[i] for i in ids))
+            with profiling.span(tr, "slam.capture " + name):
+                chain = self._capture(pending)
+            chain.name = name
+            self.chains[ids] = chain
             self.prefixes.update(ids[:i] for i in range(1, len(ids) + 1))
+
+    def _stream(self):
+        """The stream replays run on (None: no device events)."""
+        return None
 
     def _capture(self, pending) -> _Chain:
         return _Chain()
@@ -177,11 +199,15 @@ class GraphRunner(StaticRunner):
         torch.cuda.synchronize(self.device)
         return out
 
+    def _stream(self):
+        return torch.cuda.current_stream(self.device)
+
     def _capture(self, pending) -> _Chain:
-        """Record the chain (its work was just done eagerly)."""
+        """Record the chain (its work was just done eagerly), count its
+        graph's nodes, and instantiate it."""
         torch.cuda.synchronize(self.device)
         before = _native.counts()
-        chain = _Chain(graph=torch.cuda.CUDAGraph())
+        chain = _Chain(graph=torch.cuda.CUDAGraph(keep_graph=True))
         try:
             with torch.cuda.stream(self.stream):
                 # thread_local: a communicator's watchdog thread may query
@@ -202,12 +228,34 @@ class GraphRunner(StaticRunner):
         chain.launches = {n: after[n] - before[n] for n in after
                           if after[n] != before[n]}
         _native.add_counts({n: -c for n, c in chain.launches.items()})
+        chain.nodes = graph_nodes(chain.graph)
+        chain.graph.instantiate()
         return chain
 
     def _replay(self, chain: _Chain, pending) -> None:
         chain.graph.replay()
         _native.add_counts(chain.launches)
         self.replays += 1
+
+
+@lru_cache(maxsize=None)
+def _cu_graph_get_nodes():
+    """``cuGraphGetNodes(graph, nodes, count)`` of ``libcuda``."""
+    f = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    f.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.POINTER(ctypes.c_size_t)]
+    f.restype = ctypes.c_int
+    return f
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a captured graph (made with ``keep_graph=True``), by
+    ``cuGraphGetNodes`` with no node array: the count alone."""
+    n = ctypes.c_size_t(0)
+    rc = _cu_graph_get_nodes()(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return n.value
 
 
 def _storages(tree) -> set:
@@ -236,7 +284,8 @@ class _Program:
     """A compiled program's shell: a static state adopted by the runner,
     static input buffers kept by name and shape, and a block's (B, ...)
     output rows.  ``captured``: the runner is a ``StaticRunner`` (a
-    ``GraphRunner`` on the card), else the body runs eagerly."""
+    ``GraphRunner`` on the card), else the body runs eagerly.  ``scans``:
+    the scans stepped so far (a step's id is its first scan's number)."""
 
     def __init__(self, state, device, graph: bool, runner, read_fn=None):
         self.device = device
@@ -250,6 +299,29 @@ class _Program:
         self.captured = isinstance(self.rt, StaticRunner)
         self._state = self.rt.adopt(state)
         self._inputs: dict = {}
+        self.scans = 0
+
+    def _traced(self, scans: int, mapping: bool, body, *args):
+        """``body(tr, *args)``, a step of ``scans`` scans: ``tr`` the
+        tracer when tracing is on (the one check a step makes), else None.
+        A traced step is a ``slam.step`` span, and counts the LM
+        iterations of the ``diag`` its outputs carry."""
+        seq = self.scans
+        self.scans += scans
+        tr = profiling.active()
+        if tr is None:
+            return body(None, *args)
+        root = tr.begin(self, seq, scans, mapping, self.device)
+        self.rt.tracer = tr
+        out = None
+        try:
+            out = body(tr, *args)
+        finally:
+            self.rt.tracer = None
+            diag = getattr(out, "diag", None)
+            tr.end(root, diag, 2 * self.cfg.odom.max_iterations * scans
+                   if diag is not None else 0)
+        return out
 
     @property
     def state(self):
@@ -322,23 +394,31 @@ class StepGraph(_Program):
              bootstrap: bool = False) -> SlamOutput:
         """One scan (``pipeline.slam_scan_step``'s arguments); returns
         its outputs, which later steps do not overwrite."""
+        return self._traced(1, run_mapping, self._step, points, valid, ring,
+                            scan_time, run_mapping, run_loop, imu_integral,
+                            bootstrap)
+
+    def _step(self, tr, points, valid, ring, scan_time, run_mapping,
+              run_loop, imu_integral, bootstrap) -> SlamOutput:
         if not self.captured:
             self._state, out = pipeline.slam_scan_step(
                 self._state, points, valid, ring, self.cfg, scan_time,
                 run_mapping, run_loop, imu_integral, bootstrap, self.backend,
                 rt=self.rt)
             return out
-        scan = self._static("scan", self._on(points, valid, ring) + (
-            torch.full((), float(scan_time), device=self.device),))
-        if imu_integral is not None:
-            imu_integral = self._static(
-                "imu", pipeline._on(imu_integral, self.device))
+        with profiling.span(tr, "slam.inputs"):
+            scan = self._static("scan", self._on(points, valid, ring) + (
+                torch.full((), float(scan_time), device=self.device),))
+            if imu_integral is not None:
+                imu_integral = self._static(
+                    "imu", pipeline._on(imu_integral, self.device))
         state, out = pipeline.step_body(
             self._state, *scan, self.cfg, run_mapping, run_loop,
             imu_integral, bootstrap, self.backend, rt=self.rt)
         self.rt.flush()
         assert all(a is b for a, b in zip(leaves(state), leaves(self._state)))
-        return map_tree(lambda x: x.clone(), out)
+        with profiling.span(tr, "slam.outputs"):
+            return map_tree(lambda x: x.clone(), out)
 
     def block(self, points, valid, ring, scan_times, run_loop: bool = False,
               imu_integrals=None, bootstrap: bool = False) -> SlamOutput:
@@ -348,16 +428,23 @@ class StepGraph(_Program):
         Captured, the block's inputs are static (B, ...) buffers and its
         outputs a static (B, ...) tree written row by row inside the
         graphs; returns a copy of it."""
+        return self._traced(points.shape[0], True, self._block, points,
+                            valid, ring, scan_times, run_loop, imu_integrals,
+                            bootstrap)
+
+    def _block(self, tr, points, valid, ring, scan_times, run_loop,
+               imu_integrals, bootstrap) -> SlamOutput:
         n = points.shape[0]
         dev = self.device
-        scans = self._on(points, valid, ring) + (torch.as_tensor(
-            scan_times, dtype=torch.float32, device=dev),)
-        if imu_integrals is not None:
-            imu_integrals = pipeline._on(imu_integrals, dev)
-        if self.captured:
-            scans = self._static("block", scans)
+        with profiling.span(tr, "slam.inputs"):
+            scans = self._on(points, valid, ring) + (torch.as_tensor(
+                scan_times, dtype=torch.float32, device=dev),)
             if imu_integrals is not None:
-                imu_integrals = self._static("block imu", imu_integrals)
+                imu_integrals = pipeline._on(imu_integrals, dev)
+            if self.captured:
+                scans = self._static("block", scans)
+                if imu_integrals is not None:
+                    imu_integrals = self._static("block imu", imu_integrals)
         rows = None
         state = self._state
         for j in range(n):
@@ -373,7 +460,8 @@ class StepGraph(_Program):
             assert all(a is b for a, b in zip(leaves(state),
                                               leaves(self._state)))
         self._state = state
-        return map_tree(lambda x: x.clone(), rows)
+        with profiling.span(tr, "slam.outputs"):
+            return map_tree(lambda x: x.clone(), rows)
 
 
 class OdometryGraph(_Program):
@@ -396,25 +484,35 @@ class OdometryGraph(_Program):
     def step(self, points, valid, ring) -> pipeline.OdometryOutput:
         """One scan; returns its outputs, which later scans do not
         overwrite."""
-        scan = self._on(points, valid, ring)
-        if self.captured:
-            scan = self._static("scan", scan)
+        return self._traced(1, False, self._step, points, valid, ring)
+
+    def _step(self, tr, points, valid, ring) -> pipeline.OdometryOutput:
+        with profiling.span(tr, "slam.inputs"):
+            scan = self._on(points, valid, ring)
+            if self.captured:
+                scan = self._static("scan", scan)
         state, out = pipeline.odometry_body(self._state, *scan, self.cfg,
                                             rt=self.rt)
         self.rt.flush()
         if not self.captured:
             self._state = state
             return out
-        return map_tree(lambda x: x.clone(), out)
+        with profiling.span(tr, "slam.outputs"):
+            return map_tree(lambda x: x.clone(), out)
 
     def block(self, points, valid, ring) -> pipeline.OdometryOutput:
         """B consecutive scans ((B, P, 3), (B, P), (B, P)): B bodies in
         order, outputs stacked on a leading axis (a copy of the static
         rows when captured)."""
+        return self._traced(points.shape[0], False, self._block, points,
+                            valid, ring)
+
+    def _block(self, tr, points, valid, ring) -> pipeline.OdometryOutput:
         n = points.shape[0]
-        scans = self._on(points, valid, ring)
-        if self.captured:
-            scans = self._static("block", scans)
+        with profiling.span(tr, "slam.inputs"):
+            scans = self._on(points, valid, ring)
+            if self.captured:
+                scans = self._static("block", scans)
         rows = None
         state = self._state
         for j in range(n):
@@ -423,8 +521,10 @@ class OdometryGraph(_Program):
             rows = self._row(j, n, out, rows)
         self.rt.flush()
         self._state = state
-        return map_tree(lambda x: x.clone(), rows) if self.captured \
-            else rows
+        if not self.captured:
+            return rows
+        with profiling.span(tr, "slam.outputs"):
+            return map_tree(lambda x: x.clone(), rows)
 
 
 class FrontendGraph(_Program):
@@ -445,12 +545,18 @@ class FrontendGraph(_Program):
     def __call__(self, points, valid, ring) -> pipeline.ScanFeatures:
         """(B, P, 3), (B, P), (B, P) -> ``ScanFeatures`` with a leading
         (B,), which later calls do not overwrite."""
-        scans = self._on(points, valid, ring)
+        return self._traced(points.shape[0], False, self._call, points,
+                            valid, ring)
+
+    def _call(self, tr, points, valid, ring) -> pipeline.ScanFeatures:
         if not self.captured:
-            return pipeline.process_scans(*scans, self.cfg)
-        scans = self._static("scans", scans)
+            return pipeline.process_scans(*self._on(points, valid, ring),
+                                          self.cfg)
+        with profiling.span(tr, "slam.inputs"):
+            scans = self._static("scans", self._on(points, valid, ring))
         out = self.rt.seg(("frontend",),
                           partial(pipeline.process_scans, cfg=self.cfg),
                           *scans)
         self.rt.flush()
-        return map_tree(lambda x: x.clone(), out)
+        with profiling.span(tr, "slam.outputs"):
+            return map_tree(lambda x: x.clone(), out)

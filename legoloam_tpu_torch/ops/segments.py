@@ -28,7 +28,10 @@ import torch
 class Eager:
     """Segments as plain calls, decisions read back with ``read_fn``
     (default ``.item()``; a mesh's ``Mesh.read``); ``reads`` counts the
-    reads."""
+    reads.  ``tracer``: the ``utils.profiling.Tracer`` of a traced step
+    (set by the program for the step), else None."""
+
+    tracer = None
 
     def __init__(self, read_fn: Callable | None = None):
         self.reads = 0
@@ -43,6 +46,12 @@ class Eager:
         """The host value of the 0-d tensor ``x``; ``what`` names it."""
         self.flush()
         self.reads += 1
+        if self.tracer is None:
+            return self._value(x, what)
+        with self.tracer.read(what):
+            return self._value(x, what)
+
+    def _value(self, x: torch.Tensor, what: str):
         return x.item() if self.read_fn is None else self.read_fn(x, what)
 
     def adopt(self, tree):
