@@ -20,7 +20,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
      tile grid, against the plain version, plus duplicate-point ties across
      chunk and warp boundaries and every k = 1..8 at one ragged shape; in
      every K3 check (distance, index) must equal the exact search's
-     (``knn_cuda.knn_exact``);
+     (``knn_cuda.knn_exact``); [class_nn] K4 (the odometry's class-NN
+     search) bitwise against the plain ``voxel.class_nn`` on every call of
+     an odometry step at DEFAULT and VLS-128 (surface and corner, 1- and
+     2-class) and on edge sets (duplicate references, windows without a
+     reference, invalid-only classes, ex equal to a distance, huge and
+     non-finite values), the step through K4 bitwise to the step through
+     the plain version with K4's launches counted, and each shape timed
+     (wrapper, bare launch, device us, plain version, bound) with a scan's
+     K4 device time beside the sum of its bounds;
   4. run the full main path (frontend -> odometry -> scan-to-map every 3rd
      scan -> fusion) at the DEFAULT configuration (VLP-16 16x1800, submap
      caps 12288/49152, scan caps 2048/8192, 4096-keyframe store) over 96
@@ -235,9 +243,10 @@ from legoloam_tpu_torch.config import REFERENCE, for_sensor
 from legoloam_tpu_torch.models import (fusion, loopclosure, mapping,
                                        odometry, pipeline, posegraph,
                                        relocalize, step_graph)
-from legoloam_tpu_torch.ops import (_native, ccl_cuda, deskew, features,
-                                    features_cuda, icp, knn_cuda, projection,
-                                    se3, segmentation, segments, voxel)
+from legoloam_tpu_torch.ops import (_native, ccl_cuda, class_nn_cuda, deskew,
+                                    features, features_cuda, icp, knn_cuda,
+                                    projection, se3, segmentation, segments,
+                                    voxel)
 from legoloam_tpu_torch.ops.se3 import Pose, transform_points
 from legoloam_tpu_torch.parallel import frontend_dp, mapping_dist
 from legoloam_tpu_torch.parallel import mesh as mesh_mod
@@ -398,10 +407,15 @@ FDP_BATCHES = (8, 64, 256)
 FDP_VLS = 16
 FDP_CALLS = 5
 X2_FRONTEND = 16
-# Paths that run no K3: odometry alone (its class-NN is ops/voxel.py's) and
-# the frontend.
+# Paths that run no K3: odometry alone and the frontend; no K4: the
+# frontend.
 NO_KNN = ("odometry graph", "bench odometry", "bench odometry --block 1",
           "frontend dp")
+NO_CLASS_NN = ("frontend dp",)
+# [class_nn]: K4 on every class_nn call of an odometry step (the last of
+# CLASS_NN_SCANS generated scans) at DEFAULT (VLP-16) and VLS-128.
+CLASS_NN_SENSORS = ("vlp16", "vls128")
+CLASS_NN_SCANS = 3
 
 
 def fail(msg: str):
@@ -693,6 +707,251 @@ def check_main_path_rate():
         f"from the kernel's in {n} of {of} gated rows")
     if n > 0.01 * of:
         fail(f"knn main path: {n} of {of} rows differ from the plain version")
+
+
+# ---------------------------------------------------------------------------
+# K4: the odometry's class-NN search
+# ---------------------------------------------------------------------------
+
+def record_class_nn(cfg, dev, n_scans=CLASS_NN_SCANS):
+    """Every class_nn call of the odometry step on the last of ``n_scans``
+    generated scans, eager on the card with the plain version answering,
+    in call order (the surface solve, then the corner solve; at each
+    correspondence refresh a 1-class, then a 2-class call): [(label, args,
+    kwargs)], and the state the step started from and the features it
+    took."""
+    scans, _ = make_scans(cfg, dev, n_scans)
+    state = odometry.init_state(cfg.odom, cfg.feat, dev)
+    calls = []
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return voxel.class_nn(*args, **kw)
+
+    for k, scan in enumerate(scans):
+        feats = pipeline.process_scan(*scan, cfg)
+        if k == n_scans - 1:
+            before = state
+            odometry.class_nn = rec
+        try:
+            state, _, _ = odometry.odometry_step(state, feats, cfg.odom)
+        finally:
+            odometry.class_nn = class_nn_cuda.class_nn
+    surf = cfg.feat.max_less_flat
+    return ([(f"{'surf' if a[1].shape[0] == surf else 'corner'} "
+              f"{kw.get('n_classes', 1)}-class", a, kw) for a, kw in calls],
+            before, feats)
+
+
+def class_nn_edge_sets(dev, r_n=3001, q_n=900):
+    """Ring-ordered clouds (keys 0..15 sorted, as the feature clouds) with
+    duplicated references (ties) within a group, across chunks and across
+    splits, queries on references, 15% invalid references: the odometry's
+    own calls on them (an open 1-class call, then 2-class calls with ex the
+    first call's distance) and the edges: class windows that hold no
+    reference or are empty (lo > hi), windows holding invalid references
+    only, ex equal to each query's nearest distance in a windowed 1-class
+    call; then huge and non-finite coordinates and keys and NaN bounds (the
+    kernel's literal path).  [(name, args, kwargs)] on ``dev``."""
+    gen = torch.Generator().manual_seed(3)
+    key = torch.sort(torch.randint(0, 16, (r_n,), generator=gen))[0].float()
+    ref = torch.randn(r_n, 3, generator=gen) * torch.tensor([8.0, 8.0, 0.05])
+    ref[:, 2] += 0.3 * key
+    ref[128:256], key[128:256] = ref[:128].clone(), key[:128].clone()
+    ref[1500:1600], key[1500:1600] = ref[10:110].clone(), key[10:110].clone()
+    for k in range(600, 2900, 37):
+        ref[k + 1:k + 4], key[k + 1:k + 4] = ref[k], key[k]
+    rv = torch.rand(r_n, generator=gen) > 0.15
+    q = ref[torch.randint(0, r_n, (q_n,), generator=gen)].clone()
+    q[q_n // 3:] += torch.randn(q_n - q_n // 3, 3, generator=gen) * 0.3
+    q, ref, rv, key = (t.to(dev) for t in (q, ref, rv, key))
+    ninf = torch.full((1, q_n), -math.inf, device=dev)
+    d0, i0 = voxel.class_nn(q, ref, rv, key, ninf, -ninf, ninf)
+    rj = key[i0[0]][None]
+    lo = torch.cat([rj - 2.5, rj + 0.5])
+    sets = [("open 1-class", (q, ref, rv, key, ninf, -ninf, ninf), 1),
+            ("surf 2-class", (q, ref, rv, key, lo, torch.cat([rj, rj + 2.5]),
+                              torch.cat([d0, ninf])), 2),
+            ("corner 2-class", (q, ref, rv, key, lo,
+                                torch.cat([rj - 0.5, rj + 2.5]),
+                                torch.cat([ninf, ninf])), 2)]
+    lo1, hi1 = rj - 1.0, rj + 1.0
+    lo1[0, ::5], hi1[0, ::5] = 50.0, 60.0           # no key there
+    lo1[0, 1::5], hi1[0, 1::5] = 4.0, 3.0           # empty window
+    rv3 = rv & (key != 3)                           # ring 3: invalid only
+    lo1[0, 2::5], hi1[0, 2::5] = 3.0, 3.0
+    sets.append(("edges 1-class (ex = nearest distance)",
+                 (q, ref, rv3, key, lo1, hi1, d0), 1))
+    ql, refl = q.clone(), ref.clone()
+    ql[5] *= 1e11
+    ql[600] *= 3e10
+    refl[17] *= 1e11
+    refl[900] *= 2e10
+    hi = torch.cat([rj, rj + 2.5])
+    ex = torch.cat([d0, ninf])
+    sets += [("literal path huge open 1-class",
+              (ql, refl, rv, key, ninf, -ninf, ninf), 1),
+             ("literal path huge 2-class", (ql, refl, rv, key, lo, hi, ex),
+              2)]
+    qn, refn, rvn, keyn = ql.clone(), refl.clone(), rv.clone(), key.clone()
+    qn[6, 0] = math.nan
+    qn[7, 1] = math.inf
+    refn[400, 2], rvn[400] = math.inf, True
+    keyn[50], keyn[900], keyn[901] = math.nan, math.inf, -math.inf
+    lon, hin = lo.clone(), hi.clone()
+    lon[0, 30], hin[1, 40] = math.nan, math.nan
+    sets += [("literal path non-finite 2-class",
+              (qn, refl, rv, keyn, lon, hin, ex), 2),
+             ("literal path infinite reference 2-class",
+              (ql, refn, rvn, key, lo, hi, ex), 2)]
+    return [(n, a, {"q_tile": 512, "n_classes": c}) for n, a, c in sets]
+
+
+def check_class_nn(name, args, kw):
+    """K4 against the plain version on the card: (d, i) bitwise (a NaN
+    distance against a NaN)."""
+    d_k, i_k = class_nn_cuda.class_nn(*args, **kw)
+    d_p, i_p = voxel.class_nn(*args, **kw)
+    torch.cuda.synchronize()
+    same = ((d_k.view(torch.int32) == d_p.view(torch.int32))
+            | (torch.isnan(d_k) & torch.isnan(d_p))) & (i_k == i_p)
+    n_bad = int((~same).sum())
+    if n_bad:
+        where = [(c, q, float(d_k[c, q]), int(i_k[c, q]), float(d_p[c, q]),
+                  int(i_p[c, q]))
+                 for c, q in torch.nonzero(~same)[:3].tolist()]
+        fail(f"class_nn {name}: {n_bad} of {same.numel()} (class, query) "
+             f"results differ from the plain version, e.g. (class, query, "
+             f"kernel d, i, plain d, i) {where}")
+    return (int((d_p >= 1e29).sum()), int(torch.isnan(d_p).sum()),
+            same.numel())
+
+
+def bare_class_nn(args, kw):
+    """K4's C entry on prepared buffers (the wrapper's preparation done
+    once)."""
+    q, ref, rv, key, lo, hi, ex = args
+    c = kw.get("n_classes", 1)
+    ref_m = torch.where(rv[:, None], ref, torch.full_like(ref, 1e6))
+    r_sq = torch.sum(ref_m * ref_m, dim=-1)
+    q_sq = torch.sum(q * q, dim=-1)
+    lo, hi, ex = (t[:c].contiguous() for t in (lo, hi, ex))
+    q_n, r_n = q.shape[0], ref.shape[0]
+    s = class_nn_cuda.splits(q_n, r_n, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    chunks = torch.empty(3 * (-(-r_n // class_nn_cuda.RC)), device=q.device)
+    part_d = torch.empty((s, c, q_n), device=q.device)
+    part_i = torch.empty((s, c, q_n), dtype=torch.int32, device=q.device)
+    d = torch.empty((c, q_n), device=q.device)
+    i = torch.empty((c, q_n), dtype=torch.int64, device=q.device)
+    lib = _native.library()
+    st = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.class_nn_launch(
+        q.data_ptr(), q_sq.data_ptr(), ref_m.data_ptr(), r_sq.data_ptr(),
+        key.data_ptr(), lo.data_ptr(), hi.data_ptr(), ex.data_ptr(),
+        chunks.data_ptr(), part_d.data_ptr(), part_i.data_ptr(), d.data_ptr(),
+        i.data_ptr(), q_n, r_n, c, s, st)
+
+
+def class_nn_bytes(q_n, r_n, c):
+    """Each input read once (queries and their squared norms, the moved
+    references, their squared norms and keys, the class bounds), each
+    output written once (float32 distance, int64 index)."""
+    return 16 * q_n + 20 * r_n + 12 * c * q_n + 12 * c * q_n
+
+
+def class_nn_bound(args, kw):
+    q, ref, rv, key, lo, hi, ex = args
+    c = kw.get("n_classes", 1)
+    return bound_ms(class_nn_bytes(q.shape[0], ref.shape[0], c),
+                    class_nn_cuda.needed_ops(key, lo, hi, c))
+
+
+def class_nn_phase(card):
+    """[class_nn]: K4 bitwise against the plain version on the card, on
+    every class_nn call of an odometry step at DEFAULT and VLS-128 and on
+    the edge sets; the odometry step through K4 bitwise to the same step
+    through the plain version, with K4's launches counted around it; then
+    at each of the step's four shapes (surface and corner, 1- and 2-class)
+    the wrapper's ms, the bare launch's, the device us a launch
+    (torch.profiler), the plain version's ms and the bound; and a scan's
+    K4 device time (the step's calls in a row) beside the sum of the
+    bounds.  Returns the main path's (DEFAULT surface 1-class) figures for
+    the kernels table: (ms, plain ms, bytes, operations)."""
+    dev = torch.device("cuda")
+    for name, args, kw in class_nn_edge_sets(dev):
+        empty, nan, n = check_class_nn(name, args, kw)
+        log(f"[class_nn] {name} {args[0].shape[0]} x {args[1].shape[0]}: "
+            f"{n} (class, query) results bitwise equal to the plain "
+            f"version's ({empty} without a candidate, {nan} NaN)")
+    main = None
+    for sensor in CLASS_NN_SENSORS:
+        cfg = DEFAULT if sensor == "vlp16" else for_sensor(sensor)
+        calls, before, feats = record_class_nn(cfg, dev)
+        for k, (label, args, kw) in enumerate(calls):
+            empty, _, n = check_class_nn(f"{sensor} {label} #{k}", args, kw)
+            log(f"[class_nn] {sensor} {label} call {k}, "
+                f"{args[0].shape[0]} x {args[1].shape[0]}: {n} results "
+                f"bitwise equal ({empty} without a candidate)")
+        # The step through K4 against the step through the plain version.
+        (st_k, pose_k, _), n = counted(lambda: odometry.odometry_step(
+            before, feats, cfg.odom))
+        odometry.class_nn = voxel.class_nn
+        try:
+            st_p, pose_p, _ = odometry.odometry_step(before, feats, cfg.odom)
+        finally:
+            odometry.class_nn = class_nn_cuda.class_nn
+        same = all(torch.equal(a, b) for a, b in zip(
+            segments.leaves((st_k, pose_k)), segments.leaves((st_p, pose_p))))
+        log(f"[class_nn] {sensor} odometry step through K4: {n['class_nn']} "
+            f"K4 launches ({len(calls)} class_nn calls); state and pose "
+            f"bitwise to the step through the plain version: {same}")
+        if n["class_nn"] != len(calls) or not same:
+            fail(f"class_nn {sensor}: {n['class_nn']} launches for "
+                 f"{len(calls)} calls, bitwise {same}")
+        # Timings at the step's four shapes (its first refresh).
+        seen = {}
+        for label, args, kw in calls:
+            seen.setdefault(label, (args, kw))
+        for label, (args, kw) in seen.items():
+            ms = time_ms(lambda: class_nn_cuda.class_nn(*args, **kw), 50)
+            plain = time_ms(lambda: voxel.class_nn(*args, **kw), 3, 1)
+            per = device_us_per_launch(
+                lambda: class_nn_cuda.class_nn(*args, **kw))
+            b, by = class_nn_bound(args, kw)
+            log(f"[class_nn] {sensor} {label} {args[0].shape[0]} x "
+                f"{args[1].shape[0]}: ms {ms:.4f}, bare "
+                f"{bare_ms(bare_class_nn(args, kw)):.4f}, device "
+                + (", ".join(f"{k} {v:.2f}" for k, v in per.items())
+                   or "not measured")
+                + f" us a launch, plain {plain:.3f}, bound {b:.6f} ({by}) "
+                f"[{card}]")
+            if sensor == "vlp16" and label == "surf 1-class":
+                q, ref = args[0], args[1]
+                main = (ms, plain, class_nn_bytes(q.shape[0], ref.shape[0], 1),
+                        class_nn_cuda.needed_ops(args[3], args[4], args[5], 1))
+
+        def scan_calls():
+            for _, args, kw in calls:
+                class_nn_cuda.class_nn(*args, **kw)
+
+        per = device_us_per_launch(scan_calls, calls=5)
+        k4 = {k: v * len(calls) * 1e-3 for k, v in per.items()
+              if k.startswith("class_nn_")}
+        prep = {k: v * len(calls) * 1e-3 for k, v in per.items()
+                if not k.startswith(("class_nn_", "aten::", "Activity"))}
+        dev_ms = sum(k4.values())
+        bound = sum(class_nn_bound(args, kw)[0] for _, args, kw in calls)
+        plain = time_ms(lambda: [voxel.class_nn(*a, **kw)
+                                 for _, a, kw in calls], 2, 1)
+        log(f"[class_nn] {sensor} a scan ({len(calls)} calls): K4 device "
+            f"{dev_ms:.4f} ms (" + ", ".join(
+                f"{k} {v:.4f}" for k, v in k4.items())
+            + f"), bound {bound:.6f} ms, {dev_ms / bound:.2f}x the bound; "
+            f"the wrapper's PyTorch ops {sum(prep.values()):.4f} ms device; "
+            f"wrapper calls {time_ms(scan_calls, 10):.4f} ms; plain "
+            f"{plain:.3f} ms [{card}]")
+    return main
 
 
 def stage_times(scans, cfg, dev):
@@ -2052,7 +2311,8 @@ def frontend_dp_phase(mesh, runs, card):
         for _ in range(FDP_CALLS):
             ((out, _), sec), n = counted(lambda: timed(lambda: fn(*batch)))
             secs.append(sec)
-            if (n["ccl"], n["picks"], n["knn"]) != (1, 1, 0):
+            if (n["ccl"], n["picks"], n["knn"], n["class_nn"]) \
+                    != (1, 1, 0, 0):
                 fail(f"frontend dp {name}: launches {n} in one call")
             for k in total:
                 total[k] += n[k]
@@ -3345,6 +3605,8 @@ def main() -> int:
     ties = tie_set(torch.Generator().manual_seed(2), dev)
     for k in (1, 2, 5, 8):
         check_knn(f"duplicate-point ties k={k}", *ties, k, None, plain=False)
+    class_nn_main = class_nn_phase(card)
+    err["class_nn"] = 0.0
 
     # 4. Main path at full width, launches counted around the run only.
     warm = [scans[k] for k in range(4)]
@@ -3461,6 +3723,8 @@ def main() -> int:
         time_ms(lambda: voxel.knn(q, qv, ref, rv, 5), 5),
         time_ms(lambda: library_knn(q, qv, ref, rv, 5), 5),
         knn_bytes(q.shape[0], ref.shape[0], 5), 8.0 * pairs)
+    cn_ms, cn_plain, cn_bytes, cn_ops = class_nn_main
+    row("class_nn", cn_ms, cn_plain, None, cn_bytes, cn_ops)
 
     bare = {"ccl": bare_ms(bare_ccl(seeds, ch, cv)),
             "picks": bare_ms(bare_picks(rng, col, grd, cnt, cfg.feat)),
@@ -3824,7 +4088,8 @@ def main() -> int:
     # path's launches.
     for name, counts in paths.items():
         for k in counts:
-            if counts[k] <= 0 and not (k == "knn" and name in NO_KNN):
+            if counts[k] <= 0 and not (k == "knn" and name in NO_KNN) \
+                    and not (k == "class_nn" and name in NO_CLASS_NN):
                 fail(f"{name} path: kernel {k} was never launched")
     log("[launches] per path: " + "; ".join(
         f"{name} {counts}" for name, counts in paths.items()))

@@ -4,9 +4,10 @@ The PyTorch port of ``legoloam_tpu`` (the JAX package beside it, which stays
 the reference).  Same layout and function names:
 
   * ``ops/``    — per-scan operators: projection, segmentation, features,
-                  voxel/NN search, small linear algebra, and the three
+                  voxel/NN search, small linear algebra, and the four
                   hand-written CUDA kernels (``ccl_cuda``, ``features_cuda``,
-                  ``knn_cuda``) with their plain PyTorch versions.
+                  ``knn_cuda``, ``class_nn_cuda``) with their plain PyTorch
+                  versions.
   * ``models/`` — odometry, scan-to-map mapping, fusion, the pipeline.
   * ``utils/``  — synthetic worlds, trajectory metrics, state interchange
                   with the JAX package, scan and IMU files, checkpoints,

@@ -19,9 +19,9 @@ import torch
 from ..config import OdometryConfig
 from ..device import const
 from ..ops import lm, se3
+from ..ops.class_nn_cuda import class_nn
 from ..ops.features import FeatureCloud, ScanFeatures
 from ..ops.se3 import Pose
-from ..ops.voxel import class_nn
 
 _SURF_DOF = (0, 1, 5)    # [wx(roll), wy(pitch), vz]
 _CORNER_DOF = (2, 3, 4)  # [wz(yaw), vx, vy]

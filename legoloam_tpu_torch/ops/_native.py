@@ -53,6 +53,10 @@ SIGNATURES = {
     # (int64), visited, q_n, r_n, k, gate_sq, use_gate, stream
     "knn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                    _P),
+    # q, q_sq, ref_m, r_sq, key, lo, hi, ex, chunks, part_d, part_i
+    # (scratch), d_out, i_out (int64), q_n, r_n, n_classes, splits, stream
+    "class_nn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _P),
 }
 
 
