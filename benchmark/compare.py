@@ -1,6 +1,6 @@
-"""How ``correct`` is decided: the plain reference (``reference/``) follows
-the program over the window's sampled segments and the outputs and states
-are compared.
+"""How ``correct`` is decided: the plain reference (the program kind's
+``Reference``, built from ``reference/``) follows the program over the
+window's sampled segments and the outputs and states are compared.
 
 The first segment starts at scan 0 from the empty state, so there the
 reference works out everything, the map included, on its own.  Each later
@@ -36,7 +36,6 @@ from contextlib import contextmanager
 import torch
 
 from .drivers import Plan, flatten
-from .reference import step as ref
 
 NUMBERS = ("pose_gap_m", "rot_gap", "state_gap", "state_mismatch")
 
@@ -70,34 +69,11 @@ def _fill(template, host: dict, prefix: str = ""):
         for n in template._fields))
 
 
-class Reference:
-    """The reference step of a program kind ("slam" or "odometry")."""
-
-    def __init__(self, kind: str, cfg, device):
-        ref.check_config(cfg)
-        self.kind, self.cfg, self.device = kind, cfg, torch.device(device)
-
-    def empty(self):
-        if self.kind == "slam":
-            return ref.init_slam_state(self.cfg, self.device)
-        return ref.init_odometry_state(self.cfg, self.device)
-
-    def step(self, state, k: int, scan):
-        if self.kind == "slam":
-            t = torch.tensor(k * self.cfg.sensor.scan_period,
-                             dtype=torch.float32, device=self.device)
-            state, out = ref.slam_step(
-                state, *scan, t, self.cfg,
-                k % self.cfg.mapping_every == 0)
-            return state, out._asdict()
-        state, pose = ref.odometry_step(state, *scan, self.cfg)
-        return state, {"pose": pose}
-
-
-def follow(reference: Reference, plan: Plan, before: dict, stream,
+def follow(reference, plan: Plan, before: dict, stream,
            use_tf32: bool = False):
-    """The reference over each segment of ``plan``: the first from the
-    empty state, the others from ``before`` (host states by scan).
+    """The program kind's ``Reference`` (``programs/<kind>.py``) over each
+    segment of ``plan``: the first from the empty state, the others from
+    ``before`` (host states by scan).
     Returns (outputs by scan, host state after each segment by its last
     scan).  Scans are made with TF32 off whatever ``use_tf32`` says."""
     outputs, after = {}, {}

@@ -1,9 +1,11 @@
-"""The system under test and the loops that drive it.
+"""The loops that drive the system under test.
 
-A program (``SlamProgram``, ``OdometryProgram``) wraps the port's
-``StepGraph`` or ``OdometryGraph`` and owns its state; nothing else of the
-benchmark touches ``legoloam_tpu_torch``.  A driver runs it over the scan
-stream for the measured window:
+The program is a kind's ``Program`` (``programs/<kind>.py``, found by the
+mix's ``program``; ``harness`` lists its members): it wraps the port's
+step and owns its state, and nothing else of the benchmark touches
+``legoloam_tpu_torch``.  A window keeps the delta of each of its
+``counters()`` in ``Record.counts`` (``captures`` in ``Record.captures``).
+A driver runs it over the scan stream for the measured window:
 
   * ``closed``: the next scan goes in as soon as the step call returns
     (offline map building, or a replay as fast as it goes);
@@ -51,96 +53,6 @@ def flatten(tree, prefix: str = "") -> dict:
         out.update(flatten(getattr(tree, name),
                            f"{prefix}.{name}" if prefix else name))
     return out
-
-
-class SlamProgram:
-    """The per-scan SLAM step, ``StepGraph.step``: mapping every
-    ``mapping_every`` scans, and every ``decimate_every`` scans the
-    keyframe store's saturation guard (``pipeline.maybe_decimate``)."""
-
-    outputs = ("odom_pose", "mapped_pose", "fused_pose")
-
-    def __init__(self, cfg, device, traffic: dict):
-        from legoloam_tpu_torch.models import pipeline
-        from legoloam_tpu_torch.models.step_graph import StepGraph
-        self.cfg, self.device = cfg, torch.device(device)
-        self._pipeline = pipeline
-        self.margin = int(traffic["decimate_margin"])
-        self.sg = StepGraph(pipeline.init_slam_state(cfg, self.device), cfg)
-        self.n_warm = warm_scans(cfg)
-
-    def is_mapping(self, k: int) -> bool:
-        return k % self.cfg.mapping_every == 0
-
-    def step(self, k: int, scan):
-        out = self.sg.step(*scan, k * self.cfg.sensor.scan_period,
-                           run_mapping=self.is_mapping(k))
-        return {"odom_pose": out.odom_pose, "mapped_pose": out.mapped_pose,
-                "fused_pose": out.fused_pose}
-
-    def restart(self) -> None:
-        """A fresh, empty state in the captured buffers."""
-        self.sg.load(self._pipeline.init_slam_state(self.cfg, self.device))
-
-    def maintain(self) -> bool:
-        """The saturation guard; True when it decimated the store."""
-        state, did = self._pipeline.maybe_decimate(self.sg.state, self.cfg,
-                                                   margin=self.margin)
-        if did:
-            self.sg.load(state)
-        return did
-
-    @property
-    def state(self):
-        return self.sg.state
-
-    def counters(self) -> dict:
-        rt = self.sg.rt
-        return {"replays": getattr(rt, "replays", 0), "reads": rt.reads,
-                "captures": len(getattr(rt, "chains", ()))}
-
-
-class OdometryProgram:
-    """Odometry alone, ``OdometryGraph.step``: the frontend and the
-    two-step LM, scan by scan."""
-
-    outputs = ("pose",)
-
-    def __init__(self, cfg, device, traffic: dict):
-        from legoloam_tpu_torch.models import odometry
-        from legoloam_tpu_torch.models.step_graph import OdometryGraph
-        self.cfg, self.device = cfg, torch.device(device)
-        self._odometry = odometry
-        self.og = OdometryGraph(self._fresh(), cfg)
-        self.n_warm = 3
-
-    def _fresh(self):
-        return self._odometry.init_state(self.cfg.odom, self.cfg.feat,
-                                         self.device)
-
-    def is_mapping(self, k: int) -> bool:
-        return False
-
-    def step(self, k: int, scan):
-        return {"pose": self.og.step(*scan).pose}
-
-    def restart(self) -> None:
-        self.og.load(self._fresh())
-
-    def maintain(self) -> bool:
-        return False
-
-    @property
-    def state(self):
-        return self.og.state
-
-    def counters(self) -> dict:
-        rt = self.og.rt
-        return {"replays": getattr(rt, "replays", 0), "reads": rt.reads,
-                "captures": len(getattr(rt, "chains", ()))}
-
-
-PROGRAMS = {"slam": SlamProgram, "odometry": OdometryProgram}
 
 
 class Clock:
@@ -347,7 +259,7 @@ def closed_loop(prog, stager: Stager, traffic: dict, seconds: float,
             rec.window_s = clock.now() - t0
             rec.scans = k
             c1 = prog.counters()
-            rec.counts = {n: c1[n] - c0[n] for n in ("replays", "reads")}
+            rec.counts = {n: c1[n] - c0[n] for n in c1 if n != "captures"}
             rec.captures = c1["captures"] - c0["captures"]
             open_ = False
     clock.sync()
@@ -410,7 +322,7 @@ def open_loop(prog, stager: Stager, traffic: dict, seconds: float,
             rec.window_s = clock.now() - (t0 - period)
             rec.scans = n
             c1 = prog.counters()
-            rec.counts = {m: c1[m] - c0[m] for m in ("replays", "reads")}
+            rec.counts = {m: c1[m] - c0[m] for m in c1 if m != "captures"}
             rec.captures = c1["captures"] - c0["captures"]
     clock.sync()
     rec.stage_s = stager.seconds

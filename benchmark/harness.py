@@ -5,14 +5,25 @@
   * ``configs/<config>.json`` holds the configuration as it is run (its
     ``pipeline`` object is every field of the port's ``PipelineConfig``);
   * ``traffic/<mix>.json`` holds the mix's parameters: the driver
-    (``closed`` or ``open``), the program (``slam`` or ``odometry``), the
-    scan stream, the check's segments and the traced scans;
+    (``closed`` or ``open``), the program kind, the scan stream, the
+    check's segments and the traced scans;
+  * ``programs/<kind>.py`` is the mix's program kind.  Its
+    ``Program(cfg, device, traffic)`` wraps the port's step (imported
+    when it is built) and owns its state: ``outputs``, ``n_warm`` (the
+    warm-up's scans), ``is_mapping(k)``, ``step(k, scan) -> {output:
+    Pose}``, ``restart()`` (a fresh state), ``maintain()``, ``state`` and
+    ``counters()`` ({name: count}, with ``replays``, ``reads`` and
+    ``captures``).  Its ``Reference(cfg, device)``, built from
+    ``reference/`` alone and checking its configuration, has ``empty()``
+    and ``step(state, k, scan) -> (state, {output: Pose})``.  The file is
+    loaded by path, so it imports absolutely (``from benchmark.reference
+    import step``);
   * ``limits/<cell>.json`` holds the limit of each compared number;
   * ``metrics/<metric>.py`` reads one metric: ``read(ctx) -> float or
     None`` (None: nothing to read, the metric is left out of the line).
 
-A later change adds a config, a mix, a cell or a metric by adding files
-and entries; no file here names one.
+A later change adds a config, a mix, a program kind, a cell or a metric
+by adding files and entries; no file here names one.
 """
 
 from __future__ import annotations
@@ -46,15 +57,27 @@ def load_json(bench_dir: Path, kind: str, name: str) -> dict:
         return json.load(f)
 
 
-def load_reader(bench_dir: Path, metric: str):
-    """``metrics/<metric>.py``'s ``read``."""
-    path = bench_dir / "metrics" / f"{metric}.py"
+def load_file(path: Path, name: str):
+    """The Python file at ``path`` as a module called ``name``."""
     spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{metric.replace('.', '_').replace('-', '_')}",
-        path)
+        name.replace('.', '_').replace('-', '_'), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(bench_dir: Path, metric: str):
+    """``metrics/<metric>.py``'s ``read``."""
+    return load_file(bench_dir / "metrics" / f"{metric}.py",
+                     f"benchmark_metric_{metric}").read
+
+
+def load_program(bench_dir: Path, kind: str):
+    """``programs/<kind>.py``: its ``Program`` and ``Reference``."""
+    path = bench_dir / "programs" / f"{kind}.py"
+    if not path.is_file():
+        raise ValueError(f"no program kind {kind!r}: {path} not found")
+    return load_file(path, f"benchmark_program_{kind}")
 
 
 def cell_metrics(spec: dict, cell: str, trace: bool) -> list:
@@ -123,21 +146,47 @@ def forbidden_modules() -> list:
                    if m.split(".")[0] in FORBIDDEN})
 
 
-def preroll(prog, stager, seconds: float) -> float:
-    """The step on, as in the window, for ``seconds`` after the warm-up;
-    returns the seconds it took.  On the card the replayed step runs ~18%
-    slower for the first 0-30 s after the warm-up's captures (at VLP-16;
-    the cause is not known), then at its steady rate; a window opened after
-    this pre-roll reads that steady rate instead of a mix that varies from
-    run to run.  Its length is fixed by the clock, not by the program, so
-    it is left out of ``setup_s``."""
+# The card's start transient: after a program's captures the replayed step
+# runs 11-16% slower (VLP-16 odometry ~198 against ~223 scans/s, VLS-128
+# ~90 against ~105), then steps up once, at a time that varies from run to
+# run (2 s to over 45 s after the warm-up); building another program brings
+# it back.  Its end: the rate over STEADY_S seconds of steps up by
+# STEADY_GAIN on the slowest such stretch since the warm-up, twice running.
+STEADY_S = 2.0
+STEADY_GAIN = 1.08
+STEADY_CAP_S = 75.0
+
+
+def preroll(prog, stager, seconds: float, until_steady: bool):
+    """The step on, as in the window, after the warm-up: for ``seconds``,
+    and with ``until_steady`` (on the card) also until the start transient
+    has ended or ``STEADY_CAP_S`` has passed.  A window opened after it
+    reads the steady rate instead of a mix of the two that varies from run
+    to run.  Its length is set by the clock and the card, not by the
+    program, so it is left out of ``setup_s``.  Returns (seconds it took,
+    seconds to the transient's end or None, the scans/s of each
+    ``STEADY_S`` stretch)."""
+    clock = stager.clock
     t0 = time.perf_counter()
     k = prog.n_warm
-    while time.perf_counter() - t0 < seconds:
-        prog.step(k, stager.get(k))
-        k += 1
-    stager.clock.sync()
-    return time.perf_counter() - t0
+    rates, ended = [], None
+    while True:
+        done = time.perf_counter() - t0
+        if done >= seconds and (not until_steady or ended is not None
+                                or done >= STEADY_CAP_S):
+            break
+        clock.sync()
+        s0, k0 = clock.now(), k
+        while clock.now() - s0 < STEADY_S and (
+                until_steady or time.perf_counter() - t0 < seconds):
+            prog.step(k, stager.get(k))
+            k += 1
+        clock.sync()
+        rates.append((k - k0) / (clock.now() - s0))
+        if ended is None and len(rates) >= 3 and min(rates[-2:]) \
+                >= STEADY_GAIN * min(rates[:-2]):
+            ended = time.perf_counter() - t0
+    return time.perf_counter() - t0, ended, rates
 
 
 @dataclasses.dataclass
@@ -182,15 +231,17 @@ def run_cell(spec: dict, bench_dir: Path, cell: dict, seed: int,
 
     # Set-up: the program, the first chunk of scans, the warm-up on a
     # throwaway state (every step variant captured), a fresh state.
-    prog = drivers.PROGRAMS[traffic["program"]](cfg, dev, traffic)
+    program = load_program(bench_dir, traffic["program"])
+    prog = program.Program(cfg, dev, traffic)
     stream = generator.ScanStream(traffic, seed, cfg.sensor, dev)
     clock = drivers.Clock(dev)
     stager = drivers.Stager(stream, traffic["chunk"], clock)
     stager.first()
     for k in range(prog.n_warm):
         prog.step(k, stager.get(k))
-    preroll_s = preroll(prog, stager, float(
-        traffic.get("preroll_seconds", 0)) if with_preroll else 0.0)
+    preroll_s, steady_at, pre_rates = preroll(
+        prog, stager, float(traffic.get("preroll_seconds", 0)),
+        dev.type == "cuda") if with_preroll else (0.0, None, [])
     prog.restart()
     stager.get(0)
     stager.marks.clear()
@@ -218,6 +269,12 @@ def run_cell(spec: dict, bench_dir: Path, cell: dict, seed: int,
           f"{rec.stage_s:.3f} s outside the clock, {rec.captures} graph "
           f"captures and {rec.decimations} decimations in the window",
           file=sys.stderr)
+    if pre_rates:
+        print("[bench] pre-roll: the start transient "
+              + ("not seen to end" if steady_at is None else
+                 f"ended after {steady_at:.1f} s")
+              + f"; scans/s each {STEADY_S:g} s: "
+              + " ".join(f"{r:.1f}" for r in pre_rates), file=sys.stderr)
     marks = [(k, t) for k, t in stager.marks if k <= rec.scans]
     if len(marks) > 1:
         print("[bench] scans/s between stagings: " + " ".join(
@@ -260,7 +317,7 @@ def run_cell(spec: dict, bench_dir: Path, cell: dict, seed: int,
     if check_threads:
         torch.set_num_threads(check_threads)
     t0 = time.perf_counter()
-    reference = compare.Reference(traffic["program"], rcfg, dev)
+    reference = program.Reference(rcfg, dev)
     ref_out, ref_after = compare.follow(reference, plan, before, stream)
     values = compare.numbers(prog_out, prog_after, ref_out, ref_after)
     program_values = values

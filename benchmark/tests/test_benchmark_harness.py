@@ -38,6 +38,66 @@ def test_new_config_mix_limits_and_metric_are_found_by_name(tmp_path):
     assert names == ["scans_per_s", "setup_s"]
 
 
+TINY_KIND = '''"""A kind added as a file: the slam kind, counting its steps."""
+
+from pathlib import Path
+
+from benchmark import harness
+
+_slam = harness.load_program(Path(__file__).resolve().parents[1], "slam")
+Reference = _slam.Reference
+
+
+class Program(_slam.Program):
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.steps = 0
+
+    def step(self, k, scan):
+        self.steps += 1
+        return super().step(k, scan)
+
+    def counters(self):
+        return {**super().counters(), "steps": self.steps}
+'''
+STEPS_METRIC = '''"""Steps the program counted in the window."""
+
+
+def read(ctx):
+    return float(ctx.rec.counts["steps"]) if "steps" in ctx.rec.counts \
+        else None
+'''
+
+
+def _tree(root: Path) -> dict:
+    return {p.relative_to(root): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()
+            and not {"tests", "__pycache__"} & set(p.relative_to(root).parts)}
+
+
+def test_new_program_kind_is_found_by_name(tmp_path):
+    before = _tree(BENCH)
+    bench, spec, cell = tiny.make(tmp_path,
+                                  {**tiny.TRAFFIC, "program": "tiny_kind"})
+    (bench / "programs" / "tiny_kind.py").write_text(TINY_KIND)
+    (bench / "metrics" / "steps_in_window.py").write_text(STEPS_METRIC)
+    spec["per_layer"].append({
+        "name": "steps_in_window", "unit": "scans", "better": "higher",
+        "source": "program_counter", "layer": "driver", "moves":
+        "scans_per_s", "workloads": [cell["name"]]})
+    res = tiny.run(bench, spec, cell, trace=True)
+    assert res["correct"]
+    assert res["metrics"]["steps_in_window"]["value"] == res["attempted"] > 0
+    assert _tree(BENCH) == before
+
+
+def test_unknown_program_kind_names_its_file(tmp_path):
+    bench, spec, cell = tiny.make(tmp_path,
+                                  {**tiny.TRAFFIC, "program": "no_such_kind"})
+    with pytest.raises(ValueError, match=r"programs/no_such_kind\.py"):
+        tiny.run(bench, spec, cell)
+
+
 def test_result_line_holds_the_contract_keys(tmp_path, capsys):
     bench, spec, cell = tiny.make(tmp_path)
     res = tiny.run(bench, spec, cell)
@@ -115,13 +175,34 @@ def test_reference_and_yardstick_import_nothing_of_the_port(path):
 
 
 def test_reference_loads_nothing_of_the_port():
-    code = ("import sys\nimport benchmark.reference.step, benchmark.compare"
-            ", benchmark.generator\nprint(sorted({m.split('.')[0] for m in "
-            "sys.modules} & {'legoloam_tpu_torch', 'legoloam_tpu', 'jax'}))")
+    """Every program kind's ``Reference``, built and stepped once on the
+    tiny configuration, loads nothing of the port or of JAX."""
+    code = (
+        "import sys\n"
+        "import benchmark.reference.step, benchmark.compare\n"
+        "from benchmark import generator, harness\n"
+        "from benchmark.reference import config as rc\n"
+        "from benchmark.tests import tiny\n"
+        "cfg = harness.build_config(rc.PipelineConfig(), "
+        "tiny.tiny_pipeline())\n"
+        "scan = generator.ScanStream(tiny.TRAFFIC, 7, cfg.sensor, 'cpu')"
+        ".scan(0)\n"
+        "kinds = sorted(p.stem for p in (tiny.BENCH / 'programs')"
+        ".glob('*.py'))\n"
+        "for kind in kinds:\n"
+        "    ref = harness.load_program(tiny.BENCH, kind).Reference(cfg, "
+        "'cpu')\n"
+        "    state, out = ref.step(ref.empty(), 0, scan)\n"
+        "    assert out and all(p.t.shape == (3,) for p in out.values())\n"
+        "print(kinds)\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules} & "
+        "{'legoloam_tpu_torch', 'legoloam_tpu', 'jax'}))")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr[-2000:]
-    assert p.stdout.strip() == "[]"
+    kinds, loaded = p.stdout.strip().splitlines()[-2:]
+    assert "slam" in kinds and "odometry" in kinds
+    assert loaded == "[]"
 
 
 def test_idle_share_and_kernel_bytes():
@@ -199,6 +280,42 @@ def test_open_loop_counts_from_due_times_and_late_poses():
     assert len(rec.generator_lag_ms) == 8
     assert rec.window_s == pytest.approx(10 * period, abs=0.03)
     assert rec.kinds == [k % 3 == 0 for k in range(10)]
+
+
+class _StepsUp:
+    """Steps of ``slow`` s until ``at`` s after the first, then of ``fast``
+    s: the card's start transient."""
+
+    n_warm = 0
+
+    def __init__(self, slow, fast, at):
+        self.slow, self.fast, self.at, self.t0 = slow, fast, at, None
+
+    def step(self, k, scan):
+        self.t0 = self.t0 or time.perf_counter()
+        late = time.perf_counter() - self.t0 >= self.at
+        time.sleep(self.fast if late else self.slow)
+
+
+@pytest.mark.parametrize("at, until_steady, seconds, lasts, ends", [
+    (1.0, True, 0.0, (1.2, 2.2), (1.2, 2.2)),
+    (99.0, True, 0.0, (1.5, 1.9), None),
+    (99.0, False, 0.5, (0.5, 0.7), None),
+], ids=["ends_at_the_step_up", "capped_without_one", "fixed_off_the_card"])
+def test_preroll_waits_for_the_start_transient(monkeypatch, at, until_steady,
+                                               seconds, lasts, ends):
+    monkeypatch.setattr(harness, "STEADY_S", 0.2)
+    monkeypatch.setattr(harness, "STEADY_CAP_S", 1.5)
+    stager = drivers.Stager(_Stream(), 64, drivers.Clock("cpu"))
+    stager.first()
+    took, ended, rates = harness.preroll(_StepsUp(0.006, 0.004, at), stager,
+                                         seconds, until_steady)
+    assert lasts[0] <= took <= lasts[1]
+    if ends is None:
+        assert ended is None
+    else:
+        assert ends[0] <= ended <= ends[1]
+        assert rates[-1] > 1.3 * rates[0]
 
 
 def _unchanged(real):

@@ -52,7 +52,7 @@ def make(tmp: Path, traffic: dict | None = None, name: str = "tiny.grow"):
     ``scans_in_window`` added as new files, and the spec with their
     entries.  Returns (bench_dir, spec, cell)."""
     bench = tmp / "benchmark"
-    for sub in ("configs", "traffic", "limits", "metrics"):
+    for sub in ("configs", "traffic", "limits", "metrics", "programs"):
         shutil.copytree(BENCH / sub, bench / sub)
     (bench / "configs" / "tiny.json").write_text(json.dumps(
         {"name": "tiny", "pipeline": tiny_pipeline()}))
