@@ -10,7 +10,10 @@ re-solve the pose graph and rewrite every keyframe pose.  As in the JAX
 package, no candidate masks both clouds and the ICP runs no iteration; the
 JAX ``lax.cond`` around the re-solve becomes one host read of the
 acceptance, and the ICP and the pose graph's CG read a stop flag once a
-chunk of iterations (``ops/segments.py``).
+chunk of iterations (``ops/segments.py``).  An attempt starts a chain of
+its own (``rt.cut()``), and tallies itself, its closure and its ICP
+iterations on the runner (``rt.tally``: ``loop_attempts``,
+``loops_closed``, ``icp_iters``) once the acceptance is read.
 """
 
 from __future__ import annotations
@@ -160,6 +163,9 @@ def close_and_correct(kf: KeyframeStore, loops: LoopFactors,
     eagerly, a corrected store is a new store and ``kf`` is not written;
     a graph runner (``rt``) writes the factors and the corrected poses
     into ``loops`` and ``kf`` (they are its static buffers)."""
+    # The attempt's chains are its own: the tracer times them apart from
+    # the step's frontend and mapping.
+    rt.cut()
     a = rt.seg(("loop", "prepare", cfg), partial(_prepare, cfg=cfg), kf)
     res = icp_ops.icp(a.cur_pts, a.cur_val, a.hist_pts, a.hist_val, a.init,
                       max_corr_dist=cfg.icp_max_corr_dist,
@@ -169,7 +175,11 @@ def close_and_correct(kf: KeyframeStore, loops: LoopFactors,
                            partial(_accept, cfg=cfg), kf, loops, a, res,
                            into=(None, loops))
     R, t = kf.R, kf.t
-    if rt.read(accept, "loop accepted"):
+    closed = rt.read(accept, "loop accepted")
+    rt.tally("loop_attempts", 1)
+    rt.tally("loops_closed", int(closed))
+    rt.tally("icp_iters", res.iters)
+    if closed:
         R, t = posegraph.optimize(R, t, kf.count, kf.chain_R, kf.chain_t,
                                   loops, Pose(kf.R[0], kf.t[0]), pg_cfg,
                                   rt=rt)

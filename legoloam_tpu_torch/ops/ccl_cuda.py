@@ -20,9 +20,12 @@ seed mask at both ends.
 The plain version is the JAX package's XLA path: alternating segmented
 min-scans swept to a fixpoint, at most ``max_iters`` sweeps, then one
 pointer-jump compression, with the ring extrema from segment reductions.
-The CUDA kernel is a union-find, which always reaches the fixpoint; the two
-agree wherever the sweeps converge within the cap (<= 6 sweeps on real
-scans; the cap only stops adversarial snake-shaped components).  A batch
+The CUDA kernel is a union-find, which always reaches the fixpoint and
+ignores ``max_iters``; the two agree wherever the sweeps converge within the
+cap.  On VLP-16 ring scans the sweeps need 15 to 54 (the first 64 scans of
+one H100-cast run: 26 of them over the DEFAULT cap of 32, and on one of
+those the capped labels differ after the pointer jumps while K1's equal the
+fixpoint's), so where the plain path must equal K1 the cap is N * H.  A batch
 sweeps until every scan is at its fixpoint or the cap is hit, which gives
 each scan what it gets alone: a sweep at a scan's fixpoint changes nothing
 (the JAX package's vmap of its while_loop runs the same way).

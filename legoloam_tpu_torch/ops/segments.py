@@ -28,14 +28,16 @@ import torch
 class Eager:
     """Segments as plain calls, decisions read back with ``read_fn``
     (default ``.item()``; a mesh's ``Mesh.read``); ``reads`` counts the
-    reads.  ``tracer``: the ``utils.profiling.Tracer`` of a traced step
-    (set by the program for the step), else None."""
+    reads, ``tallies`` what the step's code tallied (``tally``).
+    ``tracer``: the ``utils.profiling.Tracer`` of a traced step (set by
+    the program for the step), else None."""
 
     tracer = None
 
     def __init__(self, read_fn: Callable | None = None):
         self.reads = 0
         self.read_fn = read_fn
+        self.tallies: dict = {}
 
     def seg(self, key, fn: Callable, *args, into=None):
         """``fn(*args)``; ``key`` names the segment (with every static
@@ -50,6 +52,17 @@ class Eager:
             return self._value(x, what)
         with self.tracer.read(what):
             return self._value(x, what)
+
+    def tally(self, name: str, x) -> None:
+        """Add ``x`` to the tally ``name`` and to the tracer's: a Python
+        int, or a 0-d integer tensor that a read has just flushed (a
+        solve's iteration count), summed on its device and never read
+        here."""
+        if isinstance(x, torch.Tensor):
+            x = x.to(torch.int64, copy=True)
+        self.tallies[name] = self.tallies.get(name, 0) + x
+        if self.tracer is not None:
+            self.tracer.tally(name, x)
 
     def _value(self, x: torch.Tensor, what: str):
         return x.item() if self.read_fn is None else self.read_fn(x, what)

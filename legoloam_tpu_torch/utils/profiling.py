@@ -32,9 +32,15 @@ The events are read by a non-blocking ``query()`` at later steps or by
 one synchronise in ``summary()``, never by a synchronise inside a step.
 
 Counters: replays, reads, graph nodes launched (a chain's count is taken
-at its capture), and the odometry's LM iterations used (``diag``'s
+at its capture), the odometry's LM iterations used (``diag``'s
 ``surf_iters + corner_iters``, read only in the summary) against those
-run (``2 * max_iterations`` a scan).
+run (``2 * max_iterations`` a scan), and what the step's code tallies on
+its runner (``segments.Eager.tally``): a loop attempt's
+``loop_attempts``, ``loops_closed`` (each a pose-graph re-solve) and
+``icp_iters``, and the re-solve's GN steps' ``cg_iters``, the iteration
+counts kept as tensors and summed only in the summary.  A loop attempt's
+chains are named by their heads as any other (``loop+loop icp``,
+``loop icp``, ``loop icp+loop``, ``loop+fuse``, ``pg``, ``pg+loop+fuse``).
 
 Aggregates cover the whole traced period, spans outside a step (the CLI's
 stages) included; raw spans those of the last ``MAX_STEPS`` steps.
@@ -137,6 +143,7 @@ class Tracer:
         self.gap_ms, self.gaps = 0.0, 0
         self.lm_run = 0
         self._lm: list = []          # iteration count tensors
+        self._tallies: dict = {}     # name -> [host int, tensors]
         self.raw: deque = deque(maxlen=MAX_STEPS)   # a step's Spans
         self._pending: deque = deque()   # replays whose events are unread
         self._prev = None            # the last read chain's after-event
@@ -257,6 +264,19 @@ class Tracer:
         self.reads += 1
         return self.span("slam.read " + what, child=True)
 
+    def tally(self, name: str, x) -> None:
+        """Add ``x`` (an int, or a 0-d integer tensor of the tracer's own,
+        which no later step writes) to the tally ``name``."""
+        t = self._tallies.get(name)
+        if t is None:
+            t = self._tallies[name] = [0, []]
+        if not isinstance(x, torch.Tensor):
+            t[0] += x
+            return
+        t[1].append(x)
+        if len(t[1]) >= LM_FOLD:
+            t[1] = [torch.stack(t[1]).sum()]
+
     # -- device events -------------------------------------------------
 
     def _event(self):
@@ -322,6 +342,8 @@ class Tracer:
                        for n, c in self.chains.items()},
             "gap_ms": self.gap_ms, "gaps": self.gaps,
             "lm_used": lm_used, "lm_run": self.lm_run,
+            "tallies": {n: c + (int(torch.stack(ts).sum()) if ts else 0)
+                        for n, (c, ts) in self._tallies.items()},
             "raw": [sp for step in self.raw for sp in step],
         }
 
@@ -392,6 +414,9 @@ def report(s: dict) -> list:
         if name.startswith("slam.read "):
             lines.append(f"read {name[10:]}: {sp['count']} x "
                          f"{sp['ms'] / sp['count']:.3f} ms")
+    if s["tallies"]:
+        lines.append("tallied: " + ", ".join(
+            f"{n} {v}" for n, v in sorted(s["tallies"].items())))
     if s["lm_run"]:
         lines.append(f"odometry LM iterations used {s['lm_used']} of "
                      f"{s['lm_run']} run "

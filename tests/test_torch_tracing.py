@@ -10,6 +10,7 @@ same name start and end within 50 us of each other (both are stamped on
 the same host clock around the same call).
 """
 
+import contextlib
 import dataclasses
 from pathlib import Path
 
@@ -293,6 +294,104 @@ def test_readers_of_the_tracer():
             "lm_useful_iter_share": 100.0 * 6 / 40,
             "mapping_chain_ms": 2.5,
             "read_wait_ms_per_mapping_scan": 18.0 / 2}
+    for m, r in readers.items():
+        assert r(None) == pytest.approx(want[m]), m
+
+
+LOOP_READERS = ("loop_ms_per_attempt", "loop_reads_per_attempt",
+                "cg_iters_per_solve", "loop_device_share")
+
+
+def _loop_run(runner):
+    """``benchmark/tests/tiny_loop.py``'s loop configuration on the ring's
+    scans: 14 scans untraced, then scan 15 traced, an attempt that closes
+    a loop (a keyframe one second old is a candidate).  Returns (the
+    StepGraph, its runner's tallies before the traced scan)."""
+    from benchmark import generator, harness
+    from benchmark.tests import tiny, tiny_loop
+
+    cfg = harness.build_config(DEFAULT, tiny_loop.loop_pipeline())
+    stream = generator.ScanStream(tiny.TRAFFIC, 12345678901, cfg.sensor,
+                                  "cpu")
+    sg = step_graph.StepGraph(pipeline.init_slam_state(cfg, "cpu"), cfg,
+                              runner=runner)
+    sched = pipeline.LoopScheduler(cfg)
+    before = None
+    for k in range(16):
+        if k == 15:
+            before = dict(sg.rt.tallies)
+        t = k * cfg.sensor.scan_period
+        with profiling.tracing() if k == 15 else contextlib.nullcontext():
+            sg.step(*stream.scan(k), t, run_mapping=k % 3 == 0,
+                    run_loop=sched.due(t))
+    return sg, before
+
+
+@pytest.mark.parametrize("runner", ["eager", "static"])
+def test_a_loop_attempt_is_tallied_and_read(runner):
+    """One traced attempt with a closure: the runner's and the tracer's
+    tallies (the attempt, the closure, the ICP's iterations and the
+    re-solve's CG iterations), its reads, its chains (on the static runner)
+    and the benchmark's loop readers of them."""
+    from benchmark import harness
+
+    sg, before = _loop_run(step_graph.StaticRunner() if runner == "static"
+                           else None)
+    s = profiling.summary()
+    tallies = {n: int(v) - int(before.get(n, 0))
+               for n, v in sg.rt.tallies.items()}
+    assert s["tallies"] == tallies
+    assert tallies["loop_attempts"] == tallies["loops_closed"] == 1
+    assert int(sg.state.loops.count) >= 1
+    gn = sg.cfg.posegraph.gn_iters
+    assert tallies["icp_iters"] >= 1 and tallies["cg_iters"] >= gn
+    reads = {n[10:]: v["count"] for n, v in s["spans"].items()
+             if n.startswith("slam.read ")}
+    assert reads["loop accepted"] == 1
+    assert reads["ICP stop"] >= 1 and reads["CG stop"] >= gn
+    if runner == "static":
+        # The chains replayed (those met before: a chain's first run is
+        # its capture), named by their heads; the ICP's is "loop icp".
+        assert {"loop+loop icp", "loop icp+loop", "pg"} <= set(s["chains"])
+    bench = ROOT / "benchmark"
+    got = {m: harness.load_reader(bench, m)(None) for m in LOOP_READERS}
+    assert got["loop_reads_per_attempt"] == sum(
+        reads[n] for n in ("ICP stop", "loop accepted", "CG stop"))
+    assert got["cg_iters_per_solve"] == tallies["cg_iters"]
+    # No device time on the CPU: the attempt's chains read 0 ms, and the
+    # share has nothing to divide by.
+    assert got["loop_ms_per_attempt"] == 0.0
+    assert got["loop_device_share"] is None
+
+
+def test_loop_readers_of_the_tracer():
+    """The loop readers on a hand-built tracer: 2 attempts, one closed,
+    with device spans on the loop's chains and on the others."""
+    from benchmark import harness
+
+    bench = ROOT / "benchmark"
+    readers = {m: harness.load_reader(bench, m) for m in LOOP_READERS}
+    assert all(r(None) is None for r in readers.values())
+    _hand_built()
+    tr = profiling.TRACER
+    for name, dev in (("loop+loop icp", [3.0, 4.0]),
+                      ("loop icp+loop", [1.0, 1.0]), ("pg", [20.0]),
+                      ("pg+loop+fuse", [2.0]), ("loop+fuse", [1.0])):
+        c = tr.chains[name] = profiling._Chain(10)
+        c.replays, c.device_ms = len(dev), dev
+    tr.spans.update({"slam.read ICP stop": [5, 1_000_000],
+                     "slam.read loop accepted": [2, 1_000_000],
+                     "slam.read CG stop": [12, 1_000_000]})
+    for n, x in (("loop_attempts", 2), ("loops_closed", 1),
+                 ("cg_iters", torch.tensor(40)),
+                 ("icp_iters", torch.tensor(30))):
+        tr.tally(n, x)
+    loop_ms = 3.0 + 4.0 + 1.0 + 1.0 + 20.0 + 2.0 + 1.0
+    every = loop_ms + 8.0 + 9.0 + 7.0 + 10.0 + 2.0 + 3.0
+    want = {"loop_ms_per_attempt": loop_ms / 2,
+            "loop_reads_per_attempt": (5 + 2 + 12) / 2,
+            "cg_iters_per_solve": 40.0,
+            "loop_device_share": 100.0 * loop_ms / every}
     for m, r in readers.items():
         assert r(None) == pytest.approx(want[m]), m
 
