@@ -28,7 +28,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
      non-finite values), the step through K4 bitwise to the step through
      the plain version with K4's launches counted, and each shape timed
      (wrapper, bare launch, device us, plain version, bound) with a scan's
-     K4 device time beside the sum of its bounds;
+     K4 device time beside the sum of its bounds; [link_scan] K5 (the pose
+     graph's link-axis prefix sum) bitwise against the plain cumsum lines
+     on edge sets (-0.0, non-finite links, node counts 0, 1, a tile, the
+     store and past it, 70,001 rows, endpoints at or past the node count)
+     and on every call of the first re-solves of the benchmark's loop lap
+     (vlp16_loop.grow's scans through its program), each re-solve through
+     K5 bitwise to the re-solve through the plain lines with K5's launches
+     counted, and both entries timed at 800 and 4096 nodes (wrapper, bare
+     launch, device us, the plain lines, torch.cumsum over (M, 6) and over
+     (6, M), bound);
   4. run the full main path (frontend -> odometry -> scan-to-map every 3rd
      scan -> fusion) at the DEFAULT configuration (VLP-16 16x1800, submap
      caps 12288/49152, scan caps 2048/8192, 4096-keyframe store) over 96
@@ -212,7 +221,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
   through the drivers' step graph.
   Each path's kernel launches are counted around its run (the CLI runs,
   the evaluations and the bench runs report theirs from their processes;
-  the odometry paths launch no K3); the kernels line sums them.
+  the odometry paths launch no K3, and only the loop path must launch K5,
+  which runs in a pose-graph re-solve alone); the kernels line sums them.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Needs no JAX and no network.
@@ -245,8 +255,8 @@ from legoloam_tpu_torch.models import (fusion, loopclosure, mapping,
                                        relocalize, step_graph)
 from legoloam_tpu_torch.ops import (_native, ccl_cuda, class_nn_cuda, deskew,
                                     features, features_cuda, icp, knn_cuda,
-                                    projection, se3, segmentation, segments,
-                                    voxel)
+                                    link_scan_cuda, projection, se3,
+                                    segmentation, segments, voxel)
 from legoloam_tpu_torch.ops.se3 import Pose, transform_points
 from legoloam_tpu_torch.parallel import frontend_dp, mapping_dist
 from legoloam_tpu_torch.parallel import mesh as mesh_mod
@@ -412,10 +422,28 @@ X2_FRONTEND = 16
 NO_KNN = ("odometry graph", "bench odometry", "bench odometry --block 1",
           "frontend dp")
 NO_CLASS_NN = ("frontend dp",)
+# Paths that must launch K5: those sure to accept a loop closure (K5 runs
+# only in a pose-graph re-solve).
+LINK_SCAN_PATHS = ("loop",)
+
+
+def unlaunched(path: str, launches: dict) -> list:
+    """The kernels that ``path``'s run had to launch and did not."""
+    return [k for k, n in launches.items() if n <= 0 and not (
+        (k == "knn" and path in NO_KNN)
+        or (k == "class_nn" and path in NO_CLASS_NN)
+        or (k == "link_scan" and path not in LINK_SCAN_PATHS))]
 # [class_nn]: K4 on every class_nn call of an odometry step (the last of
 # CLASS_NN_SCANS generated scans) at DEFAULT (VLP-16) and VLS-128.
 CLASS_NN_SENSORS = ("vlp16", "vls128")
 CLASS_NN_SCANS = 3
+# [link_scan]: K5 on the first LINK_SCAN_SOLVES re-solves of the benchmark's
+# loop lap (vlp16_loop.grow's stream, seed LINK_SCAN_SEED), and timed at the
+# node counts LINK_SCAN_NODES (the loop cell's store near a window's end,
+# and full) in the 4096-node store with 1024 loop slots.
+LINK_SCAN_SOLVES = 3
+LINK_SCAN_SEED = 21474839401
+LINK_SCAN_NODES = (800, 4096)
 
 
 def fail(msg: str):
@@ -951,6 +979,281 @@ def class_nn_phase(card):
             f"the wrapper's PyTorch ops {sum(prep.values()):.4f} ms device; "
             f"wrapper calls {time_ms(scan_calls, 10):.4f} ms; plain "
             f"{plain:.3f} ms [{card}]")
+    return main
+
+
+# ---------------------------------------------------------------------------
+# K5: the pose graph's link-axis prefix sum
+# ---------------------------------------------------------------------------
+
+def clone_tree(tree):
+    """A copy of every tensor of a tree of tuples; other leaves as they
+    are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        parts = [clone_tree(a) for a in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else tuple(parts)
+    return tree
+
+
+def loop_lap_solves(dev, n_solves=LINK_SCAN_SOLVES, seed=LINK_SCAN_SEED):
+    """The benchmark's ``vlp16_loop.grow`` program (its configuration, scan
+    stream and program kind, from ``benchmark/``) stepped through its
+    warm-up, a lap of the ring and attempts after it, until ``n_solves``
+    pose-graph re-solves ran: a copy of each one's arguments, taken with
+    the runner's deferred chain run.  Returns ([(args, kwargs)], the
+    configuration)."""
+    from pathlib import Path
+
+    from benchmark import generator, harness
+    from legoloam_tpu_torch.config import PipelineConfig
+    bench_dir = Path(__file__).resolve().parent / "benchmark"
+    doc = harness.load_json(bench_dir, "configs", "vlp16_loop")
+    traffic = harness.load_json(bench_dir, "traffic", "loop_grow")
+    cfg = harness.build_config(PipelineConfig(), doc["pipeline"])
+    prog = harness.load_program(bench_dir, traffic["program"]).Program(
+        cfg, dev, traffic)
+    stream = generator.ScanStream(traffic, seed, cfg.sensor, dev)
+    solves = []
+    real = posegraph.optimize
+
+    def recorded(*args, rt=segments.EAGER, **kw):
+        flush(rt)
+        solves.append((clone_tree(args), kw))
+        return real(*args, rt=rt, **kw)
+
+    posegraph.optimize = recorded
+    try:
+        for k in range(prog.n_warm):
+            prog.step(k, stream.scan(k))
+            if len(solves) >= n_solves:
+                break
+    finally:
+        posegraph.optimize = real
+    flush(prog.sg.rt)
+    sync(dev)
+    return solves, cfg
+
+
+def check_link_scan(name, v, ok, n, lo=None, hi=None):
+    """K5 against the plain lines on the card, bitwise (a NaN against a
+    NaN): the rows entry, or with ``lo`` and ``hi`` the ranges entry.
+    Returns (the kernel's result, the sums compared)."""
+    if lo is None:
+        k = K5_ROWS(v, ok, n)
+        p = link_scan_cuda.link_scan_plain(v, ok)
+    else:
+        k = K5_RANGES(v, ok, n, lo, hi)
+        p = link_scan_cuda.link_scan_ranges_plain(v, ok, lo, hi)
+    torch.cuda.synchronize()
+    same = (k.view(torch.int32) == p.view(torch.int32)) \
+        | (torch.isnan(k) & torch.isnan(p))
+    n_bad = int((~same).sum())
+    if n_bad:
+        where = [(r, c, float(k[r, c]), float(p[r, c]))
+                 for r, c in torch.nonzero(~same)[:3].tolist()]
+        fail(f"link_scan {name}: {n_bad} of {same.numel()} sums differ "
+             f"from the plain lines, e.g. (row, column, kernel, plain) "
+             f"{where}")
+    return k, same.numel()
+
+
+K5_ROWS = link_scan_cuda.link_scan
+K5_RANGES = link_scan_cuda.link_scan_ranges
+
+
+@contextlib.contextmanager
+def link_scan_entries(rows, ranges):
+    """The pose graph's K5 entry points replaced while inside."""
+    link_scan_cuda.link_scan, link_scan_cuda.link_scan_ranges = rows, ranges
+    try:
+        yield
+    finally:
+        link_scan_cuda.link_scan = K5_ROWS
+        link_scan_cuda.link_scan_ranges = K5_RANGES
+
+
+def link_scan_sets(dev):
+    """Edge inputs: [(name, v, ok, n, lo, hi)] on ``dev``: link corrections
+    over twelve decades with -0.0 entries (a leading row of them), a
+    store of one tile, one over a tile boundary, one of 137 tiles; node
+    counts 0, 1, a tile's, the store's and past it; infinities and a NaN;
+    loop slots valid, invalid (0, 0) and with endpoints at or past n."""
+    gen = torch.Generator().manual_seed(4)
+    sets = []
+    for m, n in ((4096, 0), (4096, 1), (4096, 800), (4096, 4096),
+                 (4096, 5000), (512, 512), (1300, 1025), (70001, 65537)):
+        v = torch.randn(m, 6, generator=gen) \
+            * 10.0 ** torch.randint(-8, 4, (m, 6), generator=gen).float()
+        v[0] = -0.0
+        v[torch.randint(0, m, (64,), generator=gen),
+          torch.randint(0, 6, (64,), generator=gen)] = -0.0
+        top = max(min(n, m), 1)
+        a = torch.randint(0, top, (1024,), generator=gen)
+        b = torch.randint(0, top, (1024,), generator=gen)
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        lo[::5], hi[::5] = 0, 0
+        hi[1::7] = m - 1
+        lo[2::11], hi[2::11] = min(n, m - 1), m - 1
+        ok = torch.arange(m) < n
+        nt = torch.tensor(n, dtype=torch.int32)
+        sets.append((f"M {m} n {n}", v, ok, nt, lo, hi))
+        if (m, n) == (4096, 800):
+            w = v.clone()
+            w[700, 1], w[701, 1], w[650, 4] = math.inf, -math.inf, math.nan
+            sets.append((f"M {m} n {n} non-finite", w, ok, nt, lo, hi))
+    return [(name, *(t.to(dev) for t in ts)) for name, *ts in sets]
+
+
+def link_scan_inputs(n, dev, m=4096, l_n=1024):
+    """Link corrections of a few millimetres and radians in an ``m``-node
+    store with ``n`` nodes, and ``l_n`` loop slots, every fourth invalid."""
+    gen = torch.Generator().manual_seed(n)
+    v = 1e-3 * torch.randn(m, 6, generator=gen)
+    a = torch.randint(0, n, (l_n,), generator=gen)
+    b = torch.randint(0, n, (l_n,), generator=gen)
+    lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+    lo[::4], hi[::4] = 0, 0
+    return tuple(t.to(dev) for t in (v, torch.arange(m) < n,
+                                     torch.tensor(n, dtype=torch.int32), lo,
+                                     hi))
+
+
+def bare_link_scan(v, n, lo=None, hi=None):
+    """K5's C entry on prepared buffers."""
+    lib = _native.library()
+    st = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(v)
+    m = v.shape[0]
+    if lo is None:
+        return lambda: lib.link_scan_rows_launch(
+            v.data_ptr(), n.data_ptr(), out.data_ptr(), m, st)
+    q = torch.empty_like(v)
+    s = torch.empty((lo.shape[0], 6), device=v.device)
+    return lambda: lib.link_scan_ranges_launch(
+        v.data_ptr(), n.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        q.data_ptr(), s.data_ptr(), m, lo.shape[0], st)
+
+
+def link_scan_phase(card):
+    """[link_scan]: K5 bitwise against the plain lines on the card: on the
+    edge sets, on every call of the first re-solves of the benchmark's loop
+    lap (``vlp16_loop.grow``'s scans and program: the kernel and the plain
+    lines on each call's inputs), and each re-solve through K5 against the
+    same re-solve through the plain lines (R, t bitwise), with K5's
+    launches counted and both timed; then each entry timed at
+    LINK_SCAN_NODES nodes: the wrapper's ms, the bare launch's, the device
+    us a launch (torch.profiler), the plain lines', ``torch.cumsum(dim=0)``
+    alone and over the transposed (6, M) layout, and the bound.  Returns
+    the figures for the kernels table (the CG's entry, ranges, at 800
+    nodes): (ms, plain ms, library ms, bytes)."""
+    dev = torch.device("cuda")
+    for name, v, ok, n, lo, hi in link_scan_sets(dev):
+        _, a = check_link_scan(f"{name} rows", v, ok, n)
+        _, b = check_link_scan(f"{name} ranges", v, ok, n, lo, hi)
+        log(f"[link_scan] {name}: {a} running sums and {b} range sums "
+            f"bitwise equal to the plain lines'")
+    t0 = time.perf_counter()
+    solves, lcfg = loop_lap_solves(dev)
+    log(f"[link_scan] the benchmark's loop lap (vlp16_loop, loop_grow, seed "
+        f"{LINK_SCAN_SEED}): {len(solves)} re-solves recorded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not solves:
+        fail("link_scan: the loop lap ran no pose-graph re-solve")
+    calls = {"rows": 0, "ranges": 0}
+    sums = [0]
+
+    def rows(v, ok, n):
+        calls["rows"] += 1
+        out, k = check_link_scan(f"re-solve rows #{calls['rows']}", v, ok, n)
+        sums[0] += k
+        return out
+
+    def ranges(v, ok, n, lo, hi):
+        calls["ranges"] += 1
+        out, k = check_link_scan(f"re-solve ranges #{calls['ranges']}", v,
+                                 ok, n, lo, hi)
+        sums[0] += k
+        return out
+
+    def solve(args, kw):
+        out = posegraph.optimize(*clone_tree(args), **kw)
+        sync(dev)
+        return out
+
+    per_closure = []
+    for s, (args, kw) in enumerate(solves):
+        calls.update(rows=0, ranges=0)
+        sums[0] = 0
+        with link_scan_entries(rows, ranges):
+            R_c, t_c = solve(args, kw)
+        with link_scan_entries(
+                lambda v, ok, n: link_scan_cuda.link_scan_plain(v, ok),
+                lambda v, ok, n, lo, hi:
+                link_scan_cuda.link_scan_ranges_plain(v, ok, lo, hi)):
+            (R_p, t_p), sec_p = timed(lambda: solve(args, kw))
+        (R_k, t_k), n_l = counted(lambda: solve(args, kw))
+        sec_k = timed(lambda: solve(args, kw))[1]
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in ((R_k, R_p), (t_k, t_p), (R_c, R_p),
+                                (t_c, t_p)))
+        n_nodes = int(args[2])
+        per_closure.append(n_l["link_scan"])
+        log(f"[link_scan] re-solve {s} ({n_nodes} nodes, "
+            f"{int(args[5].count)} loop factors): {calls['ranges']} CG and "
+            f"{calls['rows']} update calls, each bitwise equal to the plain "
+            f"lines ({sums[0]} sums); R, t through K5 bitwise to the re-solve "
+            f"through the plain lines: {same}; K5 launches "
+            f"{n_l['link_scan']}; eager re-solve {sec_k * 1e3:.1f} ms "
+            f"through K5, {sec_p * 1e3:.1f} ms through the plain lines "
+            f"[{card}]")
+        if not same or n_l["link_scan"] != calls["rows"] + calls["ranges"]:
+            fail(f"link_scan re-solve {s}: bitwise {same}, "
+                 f"{n_l['link_scan']} launches for "
+                 f"{calls['rows'] + calls['ranges']} calls")
+    l_n = lcfg.posegraph.max_loop_factors
+    main = None
+    for n in LINK_SCAN_NODES:
+        v, ok, nt, lo, hi = link_scan_inputs(n, dev, l_n=l_n)
+        vt = v.t().contiguous()
+        for entry, fn, plain, by, bare in (
+                ("rows", lambda: K5_ROWS(v, ok, nt),
+                 lambda: link_scan_cuda.link_scan_plain(v, ok),
+                 link_scan_cuda.bytes_moved(v.shape[0], n),
+                 bare_link_scan(v, nt)),
+                ("ranges", lambda: K5_RANGES(v, ok, nt, lo, hi),
+                 lambda: link_scan_cuda.link_scan_ranges_plain(v, ok, lo,
+                                                               hi),
+                 link_scan_cuda.bytes_moved(v.shape[0], n, l_n),
+                 bare_link_scan(v, nt, lo, hi))):
+            ms = time_ms(fn, 200)
+            plain_ms = time_ms(plain, 50)
+            cumsum_ms = time_ms(lambda: torch.cumsum(v, dim=0), 50)
+            lib_ms = time_ms(lambda: torch.cumsum(vt, dim=1), 50)
+            per = device_us_per_launch(fn)
+            per_cumsum = device_us_per_launch(
+                lambda: torch.cumsum(v, dim=0))
+            per_lib = device_us_per_launch(lambda: torch.cumsum(vt, dim=1))
+            b, bound_by = bound_ms(by, 0.0)
+            log(f"[link_scan] {entry} M {v.shape[0]} n {n} L {l_n}: ms "
+                f"{ms:.4f}, bare {bare_ms(bare):.4f}, device "
+                + (", ".join(f"{k} {u:.2f}" for k, u in per.items())
+                   or "not measured")
+                + f" us a launch; plain lines {plain_ms:.4f} ms; "
+                f"torch.cumsum dim 0 {cumsum_ms:.4f} ms (device "
+                + (", ".join(f"{k} {u:.2f}" for k, u in per_cumsum.items())
+                   or "not measured")
+                + f" us); library torch.cumsum over (6, M) dim 1 "
+                f"{lib_ms:.4f} ms (device "
+                + (", ".join(f"{k} {u:.2f}" for k, u in per_lib.items())
+                   or "not measured")
+                + f" us); bound {b:.6f} ms ({bound_by}, {by} bytes) [{card}]")
+            if entry == "ranges" and n == LINK_SCAN_NODES[0]:
+                main = (ms, cumsum_ms, lib_ms, by)
+    log(f"[link_scan] launches a closure (a re-solve of "
+        f"{lcfg.posegraph.gn_iters} GN steps): {per_closure} [{card}]")
     return main
 
 
@@ -2970,9 +3273,8 @@ def block_graph_phase(scans, cfg, dev, card, fused_g, rate_g):
 
     sg = step_graph.StepGraph(fresh(), cfg)
     (_, t_cap), launches = counted(lambda: timed(lambda: run(sg)))
-    for name, c in launches.items():
-        if c <= 0:
-            fail(f"block graph: kernel {name} was never launched")
+    for name in unlaunched("block graph", launches):
+        fail(f"block graph: kernel {name} was never launched")
     sg.load(fresh())
     replays = []
     fused_b, t_b = timed(lambda: run(sg, replays=replays))
@@ -3140,8 +3442,8 @@ def odometry_graph_phase(scans, cfg, dev, card):
                  f"{r['chains']} chains")
         if not torch.isfinite(r["poses"]).all():
             fail(f"odometry graph, {name}: non-finite pose")
-        if r["launches"]["knn"] != 0 or min(
-                v for k, v in r["launches"].items() if k != "knn") <= 0:
+        if r["launches"]["knn"] != 0 \
+                or unlaunched("odometry graph", r["launches"]):
             fail(f"odometry graph, {name}: launches {r['launches']}")
     log(f"[odometry graph] blocks vs scan by scan: largest pose difference "
         f"{gap:.3g} m")
@@ -3446,7 +3748,7 @@ def bench_phase(work, card, paths):
         fail(f"bench: {line['value']} scans/s, overflow {led['overflow']}")
     if not led["max"] < 0.5:
         fail(f"bench: fused abs error max {led['max']} m >= 0.5 m")
-    if min(r["launches"].values()) <= 0:
+    if unlaunched("bench", r["launches"]):
         fail(f"bench: launches {r['launches']}")
     paths["bench"] = r["launches"]
 
@@ -3474,12 +3776,8 @@ def bench_modes_phase(work, card, paths):
             fail(f"bench {name}: graph captures in the timed run "
                  f"({timed_run})")
         launches = r["launches"]
-        if "--odometry" in flags:
-            ok = launches["knn"] == 0 and min(
-                v for k, v in launches.items() if k != "knn") > 0
-        else:
-            ok = min(launches.values()) > 0
-        if not ok:
+        if unlaunched(f"bench {name}", launches) or (
+                "--odometry" in flags and launches["knn"] != 0):
             fail(f"bench {name}: launches {launches}")
         paths[f"bench {name}"] = launches
 
@@ -3524,7 +3822,7 @@ def endurance_report(r, card, paths):
     if not led["end"] < 0.01 * led["dist"]:
         fail(f"endurance: end drift {led['end']} m >= 1% of "
              f"{led['dist']} m")
-    if min(r["launches"].values()) <= 0:
+    if unlaunched("endurance", r["launches"]):
         fail(f"endurance: launches {r['launches']}")
     paths["endurance"] = r["launches"]
 
@@ -3607,6 +3905,8 @@ def main() -> int:
         check_knn(f"duplicate-point ties k={k}", *ties, k, None, plain=False)
     class_nn_main = class_nn_phase(card)
     err["class_nn"] = 0.0
+    link_scan_main = link_scan_phase(card)
+    err["link_scan"] = 0.0
 
     # 4. Main path at full width, launches counted around the run only.
     warm = [scans[k] for k in range(4)]
@@ -3629,9 +3929,8 @@ def main() -> int:
     ate = float(metrics.ate_rmse(fused.t, gt))
     # Unaligned: the map frame is scan 0's, the sensor at pose 1.
     end_err = float((fused.t[-1] - (gt[-1] - gt[0]) @ poses.R[1]).norm())
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"main path: kernel {name} was never launched")
+    for name in unlaunched("main", launches):
+        fail(f"main path: kernel {name} was never launched")
     log(f"[main] {N_SCANS} scans in {t_run:.3f} s = {N_SCANS / t_run:.2f} "
         f"scans/s; fused ATE {ate:.4f} m, end error {end_err:.4f} m, "
         f"{n_kf} keyframes, peak allocated {peak / 2**30:.3f} GiB (the "
@@ -3725,6 +4024,8 @@ def main() -> int:
         knn_bytes(q.shape[0], ref.shape[0], 5), 8.0 * pairs)
     cn_ms, cn_plain, cn_bytes, cn_ops = class_nn_main
     row("class_nn", cn_ms, cn_plain, None, cn_bytes, cn_ops)
+    ls_ms, ls_plain, ls_lib, ls_bytes = link_scan_main
+    row("link_scan", ls_ms, ls_plain, ls_lib, ls_bytes, 0.0)
 
     bare = {"ccl": bare_ms(bare_ccl(seeds, ch, cv)),
             "picks": bare_ms(bare_picks(rng, col, grd, cnt, cfg.feat)),
@@ -4087,14 +4388,12 @@ def main() -> int:
     # Every kernel of each path ran in it; the kernels line counts every
     # path's launches.
     for name, counts in paths.items():
-        for k in counts:
-            if counts[k] <= 0 and not (k == "knn" and name in NO_KNN) \
-                    and not (k == "class_nn" and name in NO_CLASS_NN):
-                fail(f"{name} path: kernel {k} was never launched")
+        for k in unlaunched(name, counts):
+            fail(f"{name} path: kernel {k} was never launched")
     log("[launches] per path: " + "; ".join(
         f"{name} {counts}" for name, counts in paths.items()))
     for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in paths.values())
+        r["launches"] = sum(c.get(r["name"], 0) for c in paths.values())
         r["max_abs_err"] = err[r["name"]]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -57,6 +57,11 @@ SIGNATURES = {
     # (scratch), d_out, i_out (int64), q_n, r_n, n_classes, splits, stream
     "class_nn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _P),
+    # v, n (int32), out, m (rows), stream
+    "link_scan_rows_launch": (_P, _P, _P, _I, _P),
+    # v, n (int32), lo, hi (int64), q (scratch), out, m (rows), l (slots),
+    # stream
+    "link_scan_ranges_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 

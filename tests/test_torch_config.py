@@ -102,4 +102,5 @@ def test_cpu_tensors_take_the_plain_version():
     labels, rmin, rmax = ccl_cuda.label_propagation(seeds, conn_h, conn_v, 32)
     assert labels[:, 0].tolist() == [0, 8, 16, 24]
     assert all(k.launches == 0 for k in _native.KERNELS.values())
-    assert set(_native.KERNELS) == {"ccl", "picks", "knn", "class_nn"}
+    assert set(_native.KERNELS) == {"ccl", "picks", "knn", "class_nn",
+                                    "link_scan"}
