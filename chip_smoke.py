@@ -60,11 +60,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      StepGraph.block (slam_scan_block's body), a capturing pass, then a
      replayed pass: bitwise to 4b's per-scan graphs, at most 1 host read
      and 2 graph replays a block, scans/s;
-  4d. [odometry graph] the same scans through odometry_scan_block (blocks
-     of 12) and odometry_scan_step, each from a fresh state: the first
-     call starts the drivers' kept OdometryGraph and captures, every later
-     call replays; against the eager body (graph=False): poses bitwise, 0
-     host reads and one replay in each later call, scans/s of each;
+  4d. [odometry graph] the same scans through OdometryGraph.block
+     (blocks of 12) and OdometryGraph.step, each on a fresh program: the
+     first call captures, every later call replays; against the program's
+     eager body (graph=False): poses bitwise, 0 host reads and one replay
+     in each later call, scans/s of each;
   4f. [tracing] the tracer (utils/profiling.py) on OdometryGraph at
      VLP-16 and StepGraph at VLS-128, each in a child process: rounds of
      the step with tracing off and with the tracer alone
@@ -264,10 +264,9 @@ from legoloam_tpu_torch.parallel import pipeline_dist, posegraph_dist
 from legoloam_tpu_torch.utils import (checkpoint, export, io, memory,
                                       metrics, profiling, synthetic)
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
-# outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+from benchmark import yardstick
+from benchmark.yardstick import (bound_ms, ccl_bytes, percentile,
+                                 picks_bytes, picks_ops, union_us)
 
 N_SCANS = 96
 N_PARITY_SCANS = 6
@@ -481,12 +480,6 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -1380,21 +1373,6 @@ def knn_bytes(q_n, r_n, k):
     """Each input read once (points and masks), each output written once
     (float32 distance and int64 index per slot)."""
     return 13 * (q_n + r_n) + 12 * k * q_n
-
-
-def ccl_bytes(n, h):
-    return (2 * n * h + (n - 1) * h) + 3 * 4 * n * h
-
-
-def picks_bytes(n, h):
-    """Ranges, columns and ground flags read, labels written, counts."""
-    return (4 + 4 + 1 + 4) * n * h + 4 * n
-
-
-def picks_ops(n, h):
-    """Curvature (12 flops a cell) and the occlusion and parallel tests
-    (~8)."""
-    return 20.0 * n * h
 
 
 # ---------------------------------------------------------------------------
@@ -3104,27 +3082,16 @@ def idle_share(prof, window: str):
     w0, w1 = win[0].time_range.start, win[0].time_range.end
     # The window's own record has a device-side copy spanning its kernels:
     # it is not device work.
-    iv = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1))
-                for e in evs
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.name != window
-                and e.time_range.end > w0 and e.time_range.start < w1)
+    iv = [(max(e.time_range.start, w0), min(e.time_range.end, w1))
+          for e in evs
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.name != window
+          and e.time_range.end > w0 and e.time_range.start < w1]
     if not iv:
         return None, 0, 0.0, 0.0
-    busy, (a, b) = 0.0, iv[0]
-    for c, d in iv[1:]:
-        if c > b:
-            busy, a, b = busy + (b - a), c, d
-        else:
-            b = max(b, d)
-    busy += b - a
-    return 1.0 - busy / (w1 - w0), len(iv), (w1 - w0) / 1e3, busy / 1e3
-
-
-def pct(v, q):
-    v = sorted(v)
-    return v[min(len(v) - 1, int(round(q * (len(v) - 1))))] if v else \
-        float("nan")
+    busy = union_us(iv)
+    return (yardstick.idle_share(busy, w1 - w0), len(iv), (w1 - w0) / 1e3,
+            busy / 1e3)
 
 
 def graph_phase(scans, cfg, dev, card, main_fused, main_kf):
@@ -3206,10 +3173,12 @@ def graph_phase(scans, cfg, dev, card, main_fused, main_kf):
         lm, lo = split([ms if not c else None for ms, c in lat])
         lm, lo = [x for x in lm if x is not None], \
             [x for x in lo if x is not None]
+        m50, m99, o50, o99 = (percentile(v, q) if v else float("nan")
+                              for v in (lm, lo) for q in (0.5, 0.99))
         log(f"[graph] per-scan latency, {name}, card synchronised around "
-            f"each step: mapping scans median {pct(lm, 0.5):.2f} ms, p99 "
-            f"{pct(lm, 0.99):.2f} ms (of {len(lm)}); other scans median "
-            f"{pct(lo, 0.5):.2f} ms, p99 {pct(lo, 0.99):.2f} ms (of "
+            f"each step: mapping scans median {m50:.2f} ms, p99 "
+            f"{m99:.2f} ms (of {len(lm)}); other scans median "
+            f"{o50:.2f} ms, p99 {o99:.2f} ms (of "
             f"{len(lo)}); {caps} steps captured a segment (left out, the "
             f"slowest {max(ms for ms, _ in lat):.1f} ms) [{card}]")
     log(f"[graph] host reads per scan (aten._local_scalar_dense): mapping "
@@ -3371,27 +3340,26 @@ def attempt_graph_phase(first, lcfg, dev, card):
 
 def odometry_graph_phase(scans, cfg, dev, card):
     """[odometry graph]: the main path's scans through
-    ``pipeline.odometry_scan_block`` (blocks of ODO_BLOCK) and
-    ``odometry_scan_step``, each from a fresh state and passing back the
-    state it returned: the first call starts a kept program
-    (``pipeline.kept_program``) and captures, every later one replays;
-    against the eager body (``graph=False``): poses bitwise, 0 host reads
-    in the replayed calls, one replay a block and a scan; scans/s of each.
-    Returns the block pass's launches."""
+    ``OdometryGraph.block`` (blocks of ODO_BLOCK) and
+    ``OdometryGraph.step``, each on a fresh program: the first call
+    captures, every later one replays; against the program's eager body
+    (``graph=False``): poses bitwise, 0 host reads in the replayed calls,
+    one replay a block and a scan; scans/s of each.  Returns the block
+    pass's launches."""
     B = ODO_BLOCK
     n = len(scans) // B * B
     blocks = [tuple(torch.stack([scans[b + i][j] for i in range(B)])
                     for j in range(3)) for b in range(0, n, B)]
 
-    def fresh():
-        return odometry.init_state(cfg.odom, cfg.feat, dev)
-
-    def drive(graph, calls, fn):
-        """``fn`` over ``calls`` from a fresh state: (poses, the kept
-        program, seconds of the first call, seconds of the others, host
-        reads in the others; counted on the graphs only, since the
-        counting mode slows each eager operation)."""
-        st, poses = fresh(), []
+    def drive(graph, calls, method):
+        """``method`` ("block" or "step") of a fresh ``OdometryGraph``
+        over ``calls``: (poses, the program, seconds of the first call,
+        seconds of the others, host reads in the others; counted on the
+        graphs only, since the counting mode slows each eager
+        operation)."""
+        prog = step_graph.OdometryGraph(
+            odometry.init_state(cfg.odom, cfg.feat, dev), cfg, graph=graph)
+        poses = []
         mode = ReadCount() if graph else contextlib.nullcontext()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3400,26 +3368,25 @@ def odometry_graph_phase(scans, cfg, dev, card):
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 mode.__enter__()
-            st, out = fn(st, *c, cfg, graph=graph)
+            out = getattr(prog, method)(*c)
             poses.append(out.pose.t.reshape(-1, 3))
         torch.cuda.synchronize()
         mode.__exit__(None, None, None)
         t2 = time.perf_counter()
-        return (torch.cat(poses), pipeline.kept_program(st), t1 - t0,
-                t2 - t1, getattr(mode, "reads", None))
+        return (torch.cat(poses), prog, t1 - t0, t2 - t1,
+                getattr(mode, "reads", None))
 
-    def run(calls, fn):
-        eager, _, e0, e1, _ = drive(False, calls, fn)
+    def run(calls, method):
+        eager, _, e0, e1, _ = drive(False, calls, method)
         (poses, prog, t_cap, t_rep, reads), launches = counted(
-            lambda: drive(True, calls, fn))
+            lambda: drive(True, calls, method))
         return {"poses": poses, "per": len(calls), "capture_s": t_cap,
                 "s": t_rep, "launches": launches, "reads": reads,
-                "replays": prog.rt.replays if prog else -1, "eager": eager,
-                "eager_s": e1,
-                "chains": len(prog.rt.chains) if prog else -1}
+                "replays": prog.rt.replays, "eager": eager, "eager_s": e1,
+                "chains": len(prog.rt.chains)}
 
-    blk = run(blocks, pipeline.odometry_scan_block)
-    stream = run(scans[:n], pipeline.odometry_scan_step)
+    blk = run(blocks, "block")
+    stream = run(scans[:n], "step")
     gap = float((blk["poses"] - stream["poses"]).abs().max())
     for name, r in (("blocks of %d" % B, blk), ("scan by scan", stream)):
         m = n - n // r["per"]         # scans in the replayed calls
@@ -3797,7 +3764,7 @@ def endurance_report(r, card, paths):
                 f"{caps}")
     rates = sorted(w[1] for w in wins)
     log(f"[endurance] {len(wins)} windows: min {rates[0]:.1f}, median "
-        f"{pct(rates, 0.5):.1f}, max {rates[-1]:.1f} scans/s; graph "
+        f"{percentile(rates, 0.5):.1f}, max {rates[-1]:.1f} scans/s; graph "
         f"captures inside windows {sum(w[4] for w in wins)}; decimations "
         f"after scans {[d for d, _ in r['decimations']]} -> "
         f"{[k for _, k in r['decimations']]} kf")

@@ -11,19 +11,18 @@ drivers below are also the distributed drivers.
 
 ``step_body`` is the step's one copy: straight-line segments with a host
 read between two only where a decision picks what runs next (the submap
-branch, a loop attempt's chunk loops; ``ops/segments.py``).
-``slam_scan_step`` runs it eagerly; the drivers run it through
-``step_graph.StepGraph``, which on the card with a capturable backend
-replays the segments between two reads as one captured CUDA graph, as the
-JAX package runs the step as one compiled program.
+branch, a loop attempt's chunk loops; ``ops/segments.py``), and
+``odometry_body`` the odometry's, one segment.
 
-The JAX package's block driver fuses B scans into one XLA program to save
-dispatches; ``slam_scan_block`` runs B step bodies through
-``StepGraph.block``, whose graphs hold the whole block but for the submap
-branch's read, and whose outputs equal B streaming steps'.  Odometry alone
-(``odometry_body``) runs on the card as ``step_graph.OdometryGraph``: the
-functional ``odometry_scan_step`` / ``odometry_scan_block`` keep one such
-program and replay it.
+The functional drivers (``slam_scan_step``, ``slam_scan_block``,
+``odometry_scan_step``, ``odometry_scan_block``) run their body eagerly on
+the state's device and keep nothing between calls: a state goes in and a
+new state comes out.  What replays on the card is a program that its
+caller owns, ``step_graph.StepGraph`` or ``step_graph.OdometryGraph``
+(on the card with a capturable backend the segments between two reads
+are one captured CUDA graph, as the JAX package runs the step as one
+compiled program); ``run_slam_sequence`` and ``run_odometry_sequence``
+each drive one.
 """
 
 from __future__ import annotations
@@ -40,7 +39,7 @@ from ..ops import features as feat_ops
 from ..ops import projection, se3, segmentation
 from ..ops.features import ScanFeatures
 from ..ops.se3 import Pose
-from ..ops.segments import EAGER, Eager, map_tree
+from ..ops.segments import EAGER, Eager
 from . import fusion as fusion_mod
 from . import loopclosure as loop_mod
 from . import mapping as mapping_mod
@@ -130,60 +129,14 @@ def odometry_body(state: OdometryState, points, valid, ring,
                   valid, ring, into=(state, None))
 
 
-# The programs (``step_graph.StepGraph``, ``OdometryGraph``) that the
-# functional drivers keep on the card, one a driver.  A call reuses the kept
-# program only when it is given the state that program returned, so that
-# consecutive calls replay its graphs; any other state starts a new program
-# on a copy of it, and the states returned earlier stay as they were.
-_KEPT: dict = {}
-
-
-def _kept(driver: str, state, same, make):
-    """The program kept for ``driver`` if ``state`` is its state and
-    ``same(program)``, else a new one, ``make(copy of state)``, kept in
-    its place."""
-    g = _KEPT.get(driver)
-    if g is None or g.state is not state or not same(g):
-        g = _KEPT[driver] = make(map_tree(lambda t: t.clone(), state))
-    return g
-
-
-def kept_program(state):
-    """The program a functional driver keeps on the card whose state is
-    ``state`` (the state that driver returned), else None."""
-    for g in _KEPT.values():
-        if g.state is state:
-            return g
-    return None
-
-
-def _on_graph(device, graph: bool) -> bool:
-    """Whether a functional driver on ``device`` runs a kept program."""
-    return graph and torch.device(device).type == "cuda"
-
-
-def _odometry_program(state: OdometryState, cfg: PipelineConfig):
-    from .step_graph import OdometryGraph
-    return _kept("odometry", state, lambda g: g.cfg == cfg,
-                 lambda st: OdometryGraph(st, cfg))
-
-
 def odometry_scan_step(state: OdometryState, points, valid, ring,
-                       cfg: PipelineConfig, graph: bool = True
+                       cfg: PipelineConfig
                        ) -> Tuple[OdometryState, OdometryOutput]:
-    """Frontend + odometry for one scan.  On the card (unless ``graph`` is
-    False) it runs as the kept ``step_graph.OdometryGraph``: one graph
-    replay.  The returned state is the program's static state: passing it
-    back continues on the same graphs and overwrites it (copy what must
-    outlive that); another state starts a new program on a copy of it.
-    On the CPU the body runs eagerly."""
-    if not _on_graph(state.xi.device, graph):
-        dev = state.xi.device
-        return odometry_body(state, *(torch.as_tensor(a, device=dev)
-                                      for a in (points, valid, ring)), cfg)
-    g = _odometry_program(state, cfg)
-    out = g.step(points, valid, ring)
-    return g.state, out
+    """Frontend + odometry for one scan: ``odometry_body`` on the state's
+    device, eagerly.  The state given is not written."""
+    dev = state.xi.device
+    return odometry_body(state, *(torch.as_tensor(a, device=dev)
+                                  for a in (points, valid, ring)), cfg)
 
 
 def _stack(outs):
@@ -195,24 +148,17 @@ def _stack(outs):
 
 
 def odometry_scan_block(state: OdometryState, points, valid, ring,
-                        cfg: PipelineConfig, graph: bool = True
+                        cfg: PipelineConfig
                         ) -> Tuple[OdometryState, OdometryOutput]:
     """B scans ((B, P, 3), (B, P), (B, P)) in order, outputs stacked on a
-    leading axis: B odometry bodies, equal to B calls of
-    ``odometry_scan_step``.  On the card (unless ``graph`` is False) the
-    block is one graph replay of the kept ``step_graph.OdometryGraph``,
-    whose state it returns (as ``odometry_scan_step``; the two drivers keep
-    one program between them)."""
-    if not _on_graph(state.xi.device, graph):
-        outs = []
-        for j in range(points.shape[0]):
-            state, out = odometry_scan_step(state, points[j], valid[j],
-                                            ring[j], cfg, graph=False)
-            outs.append(out)
-        return state, _stack(outs)
-    g = _odometry_program(state, cfg)
-    outs = g.block(points, valid, ring)
-    return g.state, outs
+    leading axis: B calls of ``odometry_scan_step``.  The state given is
+    not written."""
+    outs = []
+    for j in range(points.shape[0]):
+        state, out = odometry_scan_step(state, points[j], valid[j], ring[j],
+                                        cfg)
+        outs.append(out)
+    return state, _stack(outs)
 
 
 class SlamState(NamedTuple):
@@ -390,17 +336,26 @@ def step_body(state: SlamState, points, valid, ring, scan_time,
                              fused_pose=fused, diag=f.diag)
 
 
+def _step_inputs(dev, points, valid, ring, scan_time, imu_integral):
+    """A step's inputs as tensors on ``dev``: (points, valid, ring,
+    ``scan_time`` as a () float32 tensor, ``imu_integral``)."""
+    points, valid, ring = (torch.as_tensor(a, device=dev)
+                           for a in (points, valid, ring))
+    scan_time = torch.as_tensor(scan_time, dtype=torch.float32, device=dev)
+    if imu_integral is not None:
+        imu_integral = _on(imu_integral, dev)
+    return points, valid, ring, scan_time, imu_integral
+
+
 def slam_scan_step(state: SlamState, points, valid, ring,
                    cfg: PipelineConfig, scan_time, run_mapping: bool,
                    run_loop: bool = False,
                    imu_integral: Optional[deskew_ops.ImuIntegral] = None,
-                   bootstrap: bool = False, backend: Backend = SINGLE,
-                   rt=None):
+                   bootstrap: bool = False, backend: Backend = SINGLE):
     """One full SLAM step on the state's device, run eagerly (the
     functional step; the drivers run the same body through
-    ``step_graph.StepGraph``; ``rt`` the segment runner, by default one
-    that reads through the backend's ``map_hooks.read``).  ``bootstrap``
-    (pass it on scan index 1):
+    ``step_graph.StepGraph``), its decisions read through the backend's
+    ``map_hooks.read``.  ``bootstrap`` (pass it on scan index 1):
     re-seed and re-solve the odometry twice before the final solve, as the
     JAX package does.  With ``imu_integral``: de-skew, the gyro's rotation
     as the odometry seed (translation keeps the constant-velocity prior)
@@ -409,31 +364,22 @@ def slam_scan_step(state: SlamState, points, valid, ring,
     keyframe store is updated in place, except that a closed loop replaces
     its poses.  ``backend``: where mapping and loop closure run (a mesh's,
     with its state)."""
-    dev = state.odom.xi.device
-    points, valid, ring = (torch.as_tensor(a, device=dev)
-                           for a in (points, valid, ring))
-    scan_time = torch.as_tensor(scan_time, dtype=torch.float32, device=dev)
-    if imu_integral is not None:
-        imu_integral = _on(imu_integral, dev)
-    if rt is None:
-        rt = Eager(backend.map_hooks.read)
+    points, valid, ring, scan_time, imu_integral = _step_inputs(
+        state.odom.xi.device, points, valid, ring, scan_time, imu_integral)
     return step_body(state, points, valid, ring, scan_time, cfg, run_mapping,
-                     run_loop, imu_integral, bootstrap, backend, rt)
+                     run_loop, imu_integral, bootstrap, backend,
+                     Eager(backend.map_hooks.read))
 
 
 def slam_scan_block(state: SlamState, points, valid, ring,
                     cfg: PipelineConfig, scan_times, run_loop: bool = False,
                     imu_integrals: Optional[deskew_ops.ImuIntegral] = None,
-                    bootstrap: bool = False, backend: Backend = SINGLE,
-                    graph: bool = True):
+                    bootstrap: bool = False, backend: Backend = SINGLE):
     """B consecutive scans ((B, P, 3), (B, P), (B, P), times (B,)): the
     scan-to-map step (and, with ``run_loop``, a loop-closure attempt) on the
     block's first scan, odometry and fusion on every scan — B step bodies
-    through ``StepGraph.block`` (on the card one graph before the submap
-    branch's read and one after; ``graph=False``: the eager body), outputs
-    stacked on a leading axis.  On the card the returned state is the kept
-    step graph's (as ``odometry_scan_step``'s): pass it to the next block
-    to replay the same graphs.
+    run eagerly through ``StepGraph.block``, outputs stacked on a leading
+    axis.  The state is written as ``slam_scan_step`` writes it.
     ``imu_integrals``: each field stacked on a leading B axis.
     ``bootstrap`` (the first block of a run) applies the scan-1
     double-resolve, so it needs B >= 2."""
@@ -443,12 +389,7 @@ def slam_scan_block(state: SlamState, points, valid, ring,
             "double-resolve applies to scan index 1; use the streaming "
             "driver)")
     from .step_graph import StepGraph
-    if _on_graph(state.odom.xi.device, graph and backend.capturable):
-        sg = _kept("slam block", state,
-                   lambda g: g.cfg == cfg and g.backend is backend,
-                   lambda st: StepGraph(st, cfg, backend))
-    else:
-        sg = StepGraph(state, cfg, backend, graph=False)
+    sg = StepGraph(state, cfg, backend, graph=False)
     outs = sg.block(points, valid, ring, scan_times, run_loop, imu_integrals,
                     bootstrap)
     return sg.state, outs
@@ -493,17 +434,15 @@ class LoopScheduler:
 
 
 def run_slam_sequence(scans, cfg: PipelineConfig, times=None, device=None,
-                      imu_integrals=None, backend: Backend = SINGLE,
-                      graph: bool = True):
+                      imu_integrals=None, backend: Backend = SINGLE):
     """Host loop of the full pipeline over ``(points, valid, ring)``
     triples: the scan-1 bootstrap, per-scan IMU integrals (a sequence, one
     per scan, or None), the loop-closure cadence on data time and the
-    saturation guard every 32 scans.  The steps run through
-    ``step_graph.StepGraph`` (CUDA graphs on the card with the
-    single-device backend; ``graph=False``: the eager body).  Returns
-    (fused trajectory Pose (K, ...), final state)."""
+    saturation guard every 32 scans.  The steps run through one
+    ``step_graph.StepGraph`` (CUDA graphs on the card with a capturable
+    backend).  Returns (fused trajectory Pose (K, ...), final state)."""
     from .step_graph import StepGraph
-    sg = StepGraph(backend.init_state(cfg, device), cfg, backend, graph)
+    sg = StepGraph(backend.init_state(cfg, device), cfg, backend)
     sched = LoopScheduler(cfg)
     fused_R, fused_t = [], []
     for k, (pts, valid, ring) in enumerate(scans):
@@ -524,14 +463,15 @@ def run_slam_sequence(scans, cfg: PipelineConfig, times=None, device=None,
 
 def run_odometry_sequence(scans, cfg: PipelineConfig, device=None):
     """Odometry alone over ``(points, valid, ring)`` triples on ``device``
-    (default: the CUDA device): (stacked world poses, per-scan diags)."""
-    dev = resolve_device(device)
-    state = odom.init_state(cfg.odom, cfg.feat, dev)
+    (default: the CUDA device) through one ``step_graph.OdometryGraph``
+    (on the card a scan is one graph replay): (stacked world poses,
+    per-scan diags)."""
+    from .step_graph import OdometryGraph
+    g = OdometryGraph(odom.init_state(cfg.odom, cfg.feat,
+                                      resolve_device(device)), cfg)
     poses_R, poses_t, diags = [], [], []
     for pts, valid, ring in scans:
-        state, out = odometry_scan_step(
-            state, *(torch.as_tensor(a, device=dev)
-                     for a in (pts, valid, ring)), cfg)
+        out = g.step(pts, valid, ring)
         poses_R.append(out.pose.R)
         poses_t.append(out.pose.t)
         diags.append(out.diag)

@@ -401,8 +401,11 @@ class StepGraph(_Program):
     def _step(self, tr, points, valid, ring, scan_time, run_mapping,
               run_loop, imu_integral, bootstrap) -> SlamOutput:
         if not self.captured:
-            self._state, out = pipeline.slam_scan_step(
-                self._state, points, valid, ring, self.cfg, scan_time,
+            points, valid, ring, scan_time, imu_integral = \
+                pipeline._step_inputs(self.device, points, valid, ring,
+                                      scan_time, imu_integral)
+            self._state, out = pipeline.step_body(
+                self._state, points, valid, ring, scan_time, self.cfg,
                 run_mapping, run_loop, imu_integral, bootstrap, self.backend,
                 rt=self.rt)
             return out

@@ -509,10 +509,10 @@ def slam_scan_block_dist(state: DistSlamState, points, valid, ring,
                          cfg: PipelineConfig, mesh: Mesh, scan_times,
                          run_loop: bool = False, imu_integrals=None,
                          bootstrap: bool = False):
-    """``pipeline.slam_scan_block`` over the ranks: B consecutive scans,
-    mapping (and, with ``run_loop``, a loop-closure attempt) on the block's
-    first scan, outputs stacked on a leading axis.  ``bootstrap`` (the first
-    block of a run) needs B >= 2."""
+    """``pipeline.slam_scan_block`` over the ranks, eagerly: B consecutive
+    scans, mapping (and, with ``run_loop``, a loop-closure attempt) on the
+    block's first scan, outputs stacked on a leading axis.  ``bootstrap``
+    (the first block of a run) needs B >= 2."""
     return pipeline_mod.slam_scan_block(
         state, points, valid, ring, cfg, scan_times, run_loop,
         imu_integrals, bootstrap, backend=MeshBackend(mesh))

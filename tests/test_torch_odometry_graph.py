@@ -138,45 +138,40 @@ def test_static_block_equals_eager(eager, no_reads, B):
     assert torch.equal(torch.cat(rows_e), want.pose.t)
 
 
-def test_functional_drivers_keep_one_program(eager, monkeypatch):
-    """On the card ``odometry_scan_step`` / ``_block`` run a kept program
-    (here on ``StaticRunner``): passing back the state it returned replays
-    its chain; another state starts a new program on a copy of it, so the
-    caller's state is never written and a state returned earlier survives
-    a run from another state."""
-    outs, st = eager
-    monkeypatch.setattr(tpipe, "_on_graph", lambda device, graph: graph)
-    monkeypatch.setattr(step_graph, "make_runner",
-                        lambda device, graph=True, read_fn=None:
-                        step_graph.StaticRunner(read_fn))
-    monkeypatch.setattr(tpipe, "_KEPT", {})
+def test_run_odometry_sequence_replays_one_program(eager, monkeypatch):
+    """``run_odometry_sequence`` drives one ``OdometryGraph`` (here on a
+    ``StaticRunner``): one chain, recorded at the first scan and replayed
+    at every later one, poses bitwise to the eager body's.  The functional
+    ``odometry_scan_step`` / ``_block`` keep nothing: the state given is
+    not written."""
+    outs, _ = eager
+    runners = []
+
+    def make_runner(device, graph=True, read_fn=None):
+        runners.append(step_graph.StaticRunner(read_fn))
+        return runners[-1]
+
+    monkeypatch.setattr(step_graph, "make_runner", make_runner)
     scans = _scans()
+    poses, diags = tpipe.run_odometry_sequence(scans, TCFG, device="cpu")
+    assert len(runners) == 1
+    rt = runners[0]
+    assert len(rt.chains) == 1 and rt.replays == N - 1 and rt.reads == 0
+    assert torch.equal(poses.R, torch.stack([o.pose.R for o in outs]))
+    assert torch.equal(poses.t, torch.stack([o.pose.t for o in outs]))
+    assert _equal(tpipe._stack(diags), tpipe._stack([o.diag for o in outs]))
+    # The functional drivers: a state in, a new state out, the input
+    # unwritten; nothing asks for a runner.
     start = _fresh()
-    s, got = start, []
-    for sc in scans:
-        s, out = tpipe.odometry_scan_step(s, *sc, TCFG)
-        got.append(out)
-    g = tpipe.kept_program(s)
-    assert s is g.state and g.rt.replays == N - 1
-    assert all(_equal(a, b) for a, b in zip(got, outs)) and _equal(s, st)
-    assert _equal(start, _fresh())
-    # A run from another state: a new program; the state returned above
-    # keeps its values.
-    s_end = tuple(t.clone() for t in leaves(s))
-    s2, blk = tpipe.odometry_scan_block(_fresh(), *_block(scans), TCFG)
-    g2 = tpipe.kept_program(s2)
-    assert g2 is not g and tpipe.kept_program(s) is None
-    assert all(torch.equal(a, b) for a, b in zip(leaves(s), s_end))
-    assert torch.equal(blk.pose.t, torch.stack([o.pose.t for o in outs]))
-    # Passing the returned state back continues on the same program.
-    s3, out = tpipe.odometry_scan_step(s2, *scans[0], TCFG)
-    assert s3 is s2 and tpipe.kept_program(s3) is g2
-    assert g2.rt.replays == 0 and len(g2.rt.chains) == 2
-    # graph=False: the eager body, the program untouched.
-    s4, out = tpipe.odometry_scan_step(_fresh(), *scans[0], TCFG,
-                                       graph=False)
-    assert tpipe.kept_program(s3) is g2 and len(g2.rt.chains) == 2
-    assert torch.equal(out.pose.t, outs[0].pose.t)
+    before = [t.clone() for t in leaves(start)]
+    s, _ = tpipe.odometry_scan_step(start, *scans[0], TCFG)
+    s, _ = tpipe.odometry_scan_step(s, *scans[1], TCFG)
+    mid = [t.clone() for t in leaves(s)]
+    tpipe.odometry_scan_block(s, *_block(scans[2:]), TCFG)
+    tpipe.odometry_scan_block(start, *_block(scans), TCFG)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(start), before))
+    assert all(torch.equal(a, b) for a, b in zip(leaves(s), mid))
+    assert len(runners) == 1
 
 
 def test_block_matches_jax_jitted_block(eager):
